@@ -21,6 +21,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    must be finite and no larger than the initial one.
 5. ``bench.py``'s task on the port: the Fourier variant trained by LM to
    loss < 0.01 (at most 100 iterations), timed.
+6. Lotka-Volterra scenario 1 on the card, every stage on ``cuda:0`` (this
+   path runs no hand-written kernel; the kernel's counter is zeroed before
+   and reported after):
+   (a) Vern7 truth at 1e-12 in float64, equal to the CPU's to 1e-10;
+   (b) the interpolating-adjoint gradient of the scenario's loss for the
+       full 2→5→5→5→2 RBF model against the discrete adjoint (float32 at
+       1e-6: relative 1e-3; float64 at 1e-8: relative 1e-6), against the
+       CPU float64 port (relative 1e-9) and under ``torch.func.grad``
+       (relative 1e-12), with the median seconds per gradient over 10 calls;
+   (c) 20 ADAM steps (float32) and 20 BFGS iterations (float64): the loss is
+       finite and falls;
+   (d) SINDy (polynomial degree 5 + sin, the scenario's λ grid) on the true
+       interactions selects exactly x·y per equation, at −0.9 and 0.8 to 1e-6;
+   (e) that model refit by BFGS (≤ 50 iterations) on the noisy data and
+       extrapolated to t = 50: the solve succeeds and the period is within
+       10 % of the truth's;
+   (f) a 4-lane ``bfgs_minimize_lanes`` over ``integrate_fixed`` equals the
+       four single-lane ``bfgs_minimize`` runs to 1e-10 (float64, 5
+       iterations).
+   (c), (e) and (f) call the pipeline's own stages
+   (``examples/lv_scenario_1.py``: ``make_loss``, ``refit``, ``extrapolate``,
+   ``judge_loss``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -269,6 +291,186 @@ def phase_bench_task(device, card, ts, ys):
         raise AssertionError(f"fourier LM did not reach loss < 0.01: {loss}")
 
 
+def _sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def _check(ok, msg):
+    if not ok:
+        raise AssertionError(msg)
+    log(msg)
+
+
+def phase_lv(device, card):
+    """Phase 6: Lotka-Volterra scenario 1 on the card (see the module docstring)."""
+    import numpy as np
+    import torch
+    import universal_differential_equations_torch as ude
+    from universal_differential_equations_torch import sindy as sd
+    from universal_differential_equations_torch.examples import lv_scenario_1 as scen
+    from universal_differential_equations_torch.flatten_util import ravel_pytree
+    from universal_differential_equations_torch.models import lotka_volterra as lv
+    from universal_differential_equations_torch.ops import stencil
+
+    f64 = torch.float64
+    stencil.launches = 0
+    t_phase = time.perf_counter()
+
+    # (a) truth: Vern7 at 1e-12 in float64 (raises unless the solve succeeded)
+    t0 = time.perf_counter()
+    ts64, X_true, X_noisy64 = lv.generate_data(torch.Generator().manual_seed(scen.SEED),
+                                               device=device)
+    _sync()
+    wall = time.perf_counter() - t0
+    _, X_cpu, Xn_cpu = lv.generate_data(torch.Generator().manual_seed(scen.SEED))
+    err = float((X_true.cpu() - X_cpu).abs().max())
+    _check(err <= 1e-10 and X_true.device == device,
+           f"[lv a] Vern7 truth {tuple(X_true.shape)} float64 on {X_true.device} in "
+           f"{wall:.3f} s; max|card - cpu| {err:.3e} (bound 1e-10)")
+    ts32, Xn32 = ts64.float(), X_noisy64.float()
+
+    # (b) the interpolating-adjoint gradient of the scenario's loss
+    rhs, params0, _ = lv.make_ude(torch.Generator().manual_seed(0), device=device)
+    flat32, unravel = ravel_pytree(params0)
+
+    def grad(flat, X, ts, tol, adjoint):
+        x = flat.detach().clone().requires_grad_(True)
+        sol = ude.solve(ude.ODEProblem(rhs, X[0], (0.0, 3.0), unravel(x)), ude.Tsit5(),
+                        saveat=ts, rtol=tol, atol=tol, adjoint=adjoint)
+        loss = torch.mean((sol.ys - X) ** 2)
+        (g,) = torch.autograd.grad(loss, x)
+        return loss.detach(), g
+
+    def median_s(fn, calls=10):
+        walls = []
+        for _ in range(calls):
+            _sync()
+            t0 = time.perf_counter()
+            fn()
+            _sync()
+            walls.append(time.perf_counter() - t0)
+        return statistics.median(walls)
+
+    interp, disc = ude.InterpolatingAdjoint(), ude.DiscreteAdjoint()
+    _, g_i32 = grad(flat32, Xn32, ts32, 1e-6, interp)
+    _, g_d32 = grad(flat32, Xn32, ts32, 1e-6, disc)
+    r32 = _rel(g_i32, g_d32)
+    flat64 = flat32.double()
+    _, g_i64 = grad(flat64, X_noisy64, ts64, 1e-8, interp)
+    _, g_d64 = grad(flat64, X_noisy64, ts64, 1e-8, disc)
+    r64 = _rel(g_i64, g_d64)
+    x_c = flat64.cpu().requires_grad_(True)
+    sol_c = ude.solve(ude.ODEProblem(rhs, Xn_cpu[0], (0.0, 3.0), unravel(x_c)), ude.Tsit5(),
+                      saveat=ts64.cpu(), rtol=1e-8, atol=1e-8, adjoint=interp)
+    (g_cpu,) = torch.autograd.grad(torch.mean((sol_c.ys - Xn_cpu) ** 2), x_c)
+    r_cpu = _rel(g_i64.cpu(), g_cpu)
+    # torch.func.grad through solve()'s default adjoint equals torch.autograd's
+    g_fn = torch.func.grad(lambda x: torch.mean((ude.solve(
+        ude.ODEProblem(rhs, X_noisy64[0], (0.0, 3.0), unravel(x)), ude.Tsit5(), saveat=ts64,
+        rtol=1e-8, atol=1e-8).ys - X_noisy64) ** 2))(flat64)
+    r_fn = _rel(g_fn, g_i64)
+    s32 = median_s(lambda: grad(flat32, Xn32, ts32, 1e-6, interp))
+    s64 = median_s(lambda: grad(flat64, X_noisy64, ts64, 1e-8, interp))
+    _check(torch.isfinite(g_i32).all() and r32 <= 1e-3 and r64 <= 1e-6 and r_cpu <= 1e-9
+           and r_fn <= 1e-12,
+           f"[lv b] interpolating-adjoint gradient ({flat32.numel()} params): f32 vs "
+           f"discrete rel {r32:.3e} (1e-3), f64 vs discrete rel {r64:.3e} (1e-6), "
+           f"f64 card vs cpu rel {r_cpu:.3e} (1e-9), torch.func.grad vs autograd rel "
+           f"{r_fn:.3e} (1e-12)")
+    log(f"[lv b] seconds per gradient, median of 10: float32 {s32:.4f} s "
+        f"({1 / s32:.3f} grad steps/s), float64 {s64:.4f} s on {card}")
+
+    # (c) short training through the pipeline's loss: 20 ADAM steps (float32),
+    # then 20 BFGS iterations (float64)
+    t0 = time.perf_counter()
+    loss32 = scen.make_loss(rhs, Xn32, ts32, 1e-6)
+    l0 = float(loss32(params0))
+    res1 = ude.fit(loss32, params0, lambda ps: torch.optim.Adam(ps, lr=0.1), 20,
+                   callback_every=20)
+    _sync()
+    t_adam = time.perf_counter() - t0
+    loss64 = scen.make_loss(rhs, X_noisy64, ts64, 1e-8)
+    p64 = [{k: v.double() for k, v in layer.items()} for layer in res1.params]
+    l1 = float(loss64(p64))
+    t0 = time.perf_counter()
+    res2 = ude.bfgs_minimize(loss64, p64, maxiters=20, initial_stepnorm=0.01, gtol=1e-12)
+    _sync()
+    t_bfgs = time.perf_counter() - t0
+    l2 = float(res2.value)
+    _check(math.isfinite(l2) and res1.final_loss < l0 and l2 < l1,
+           f"[lv c] ADAM 20 steps (f32): loss {l0:.6g} -> {res1.final_loss:.6g} in "
+           f"{t_adam:.2f} s; BFGS {int(res2.iterations)} iterations, "
+           f"{int(res2.num_evals)} evaluations (f64): {l1:.6g} -> {l2:.6g} in {t_bfgs:.2f} s")
+
+    # (d) SINDy on the true interactions
+    basis = scen.scenario_basis()
+    xy = X_true[:, 0] * X_true[:, 1]
+    P = lv.P_TRUE.to(device)
+    Y = torch.stack([-P[1] * xy, P[2] * xy], -1)
+    t0 = time.perf_counter()
+    res_sd = sd.sindy(sd.DirectDataDrivenProblem(X_true, Y), basis, sd.STLSQ(scen.LAMS),
+                      normalize=True)
+    t_sd = time.perf_counter() - t0
+    j = basis.names.index("u1*u2")
+    only_xy = all(np.flatnonzero(res_sd.active[:, e]).tolist() == [j] for e in (0, 1))
+    cerr = float(np.abs(res_sd.coefficients[j] - np.array([-0.9, 0.8])).max())
+    _check(only_xy and cerr <= 1e-6,
+           f"[lv d] SINDy on the true interactions in {t_sd:.2f} s: "
+           f"{res_sd.equations()}; max coefficient error {cerr:.3e} (1e-6)")
+
+    # (e) the pipeline's refit of the recovered model on the noisy data, and its
+    # extrapolation to t = 50 (which raises unless both solves finished)
+    rec_rhs = lv.make_recovered_rhs(res_sd)
+    u0 = X_noisy64[0]
+    t0 = time.perf_counter()
+    res3 = scen.refit(rec_rhs, torch.as_tensor(res_sd.parameters(), dtype=f64, device=device),
+                      u0, X_noisy64, ts64, maxiters=50)
+    ys_ex, per_rec, per_tru = scen.extrapolate(rec_rhs, res3.params, u0)
+    _sync()
+    t_ex = time.perf_counter() - t0
+    per_err = abs(per_rec - per_tru) / per_tru
+    _check(per_err <= 0.1 and bool(torch.isfinite(ys_ex).all()),
+           f"[lv e] refit {int(res3.iterations)} BFGS iterations: loss {float(res3.value):.6g}, "
+           f"params {res3.params.cpu().numpy()}; t=50 extrapolation finished, period "
+           f"error {per_err:.3%} (10 %), {t_ex:.2f} s")
+
+    # (f) the pipeline's lane-batched refit judge against single-lane runs
+    C_true = torch.zeros(len(basis), 2, dtype=f64, device=device)
+    C_true[j] = torch.tensor([-0.9, 0.8], dtype=f64, device=device)
+    gen = torch.Generator().manual_seed(5)
+    C0 = torch.stack([C_true + 0.05 * torch.randn(C_true.shape, generator=gen, dtype=f64)
+                      .to(device) * (C_true != 0) for _ in range(4)])
+    C0[1, basis.names.index("u1")] = torch.tensor([0.05, -0.02], dtype=f64, device=device)
+    mask = (C0 != 0).to(f64)
+    kw = dict(maxiters=5, initial_stepnorm=0.01)
+    t0 = time.perf_counter()
+    lanes = ude.bfgs_minimize_lanes(scen.judge_loss(basis, u0, X_noisy64, ts64, mask), C0, **kw)
+    _sync()
+    t_lanes = time.perf_counter() - t0
+    worst, iters = 0.0, []
+    t0 = time.perf_counter()
+    for lane in range(4):
+        single = ude.bfgs_minimize(scen.judge_loss(basis, u0, X_noisy64, ts64, mask[lane]),
+                                   C0[lane], **kw)
+        iters.append((int(lanes.iterations[lane]), int(single.iterations)))
+        worst = max(worst, float((lanes.params[lane] - single.params).abs().max()),
+                    abs(float(lanes.value[lane] - single.value)))
+    _sync()
+    t_single = time.perf_counter() - t0
+    _check(worst <= 1e-10 and all(a == b for a, b in iters),
+           f"[lv f] 4-lane BFGS over integrate_fixed vs 4 single-lane runs: iterations "
+           f"{iters}, max|diff| {worst:.3e} (1e-10); {t_lanes:.2f} s batched, "
+           f"{t_single:.2f} s serial")
+    log(f"[lv] fused RHS kernel launches during phase 6: {stencil.launches} (this path "
+        f"runs no hand-written kernel); phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not (ROOT / PKG).is_dir():
         print(f"chip_smoke.py: the package {PKG}/ is not beside this script", file=sys.stderr)
@@ -284,6 +486,7 @@ def main():
     max_err, timing = phase_kernel(device)
     launches, _, ts, ys = phase_main_path(device)
     phase_bench_task(device, card, ts, ys)
+    phase_lv(device, card)
 
     k_ms, p_ms = timing[(PAPER, 26)]
     print(json.dumps({"kernels": [{

@@ -145,3 +145,48 @@ def test_lm_main_path_goes_through_the_kernel(cuda_device):
     res = tude.levenberg_marquardt(residuals, params0, maxiters=2)
     assert stencil.launches > before
     assert np.isfinite(float(res.loss)) and float(res.loss) <= loss0
+
+
+def _lv_grad(device, dtype, adjoint):
+    """The gradient of LV scenario 1's loss for the full RBF model, at 1e-8."""
+    from universal_differential_equations_torch.flatten_util import ravel_pytree
+    from universal_differential_equations_torch.models import lotka_volterra as lv
+
+    ts, _, X = lv.generate_data(torch.Generator().manual_seed(1234), dtype=dtype,
+                                device=device)
+    rhs, params, _ = lv.make_ude(torch.Generator().manual_seed(0), dtype=dtype,
+                                 device=device)
+    flat, unravel = ravel_pytree(params)
+    x = flat.clone().requires_grad_(True)
+    sol = tude.solve(tude.ODEProblem(rhs, X[0], (0.0, 3.0), unravel(x)), tude.Tsit5(),
+                     saveat=ts, rtol=1e-8, atol=1e-8, adjoint=adjoint)
+    (g,) = torch.autograd.grad(torch.mean((sol.ys - X) ** 2), x)
+    return g
+
+
+def test_lv_interpolating_adjoint_gradient_matches_cpu(cuda_device):
+    # float64 on the card against the CPU port: relative 1e-9
+    g_card = _lv_grad(cuda_device, torch.float64, tude.InterpolatingAdjoint())
+    g_cpu = _lv_grad(None, torch.float64, tude.InterpolatingAdjoint())
+    assert g_card.device == cuda_device
+    rel = (g_card.cpu() - g_cpu).abs().max() / g_cpu.abs().max()
+    assert float(rel) <= 1e-9
+
+
+def test_lane_batched_bfgs_matches_single_lanes(cuda_device):
+    # three independent quartic-plus-quadratic problems as lanes, float64
+    g = torch.Generator().manual_seed(3)
+    A = torch.tensor([[3.0, 1.0], [1.0, 2.0]], dtype=torch.float64, device=cuda_device)
+    b = torch.randn(3, 2, generator=g, dtype=torch.float64).to(cuda_device)
+    x0 = torch.randn(3, 2, generator=g, dtype=torch.float64).to(cuda_device)
+
+    def lanes(X):
+        return 0.5 * torch.einsum("li,ij,lj->l", X, A, X) - (b * X).sum(-1) + (X ** 4).sum(-1)
+
+    res = tude.bfgs_minimize_lanes(lanes, x0, maxiters=50, initial_stepnorm=0.01)
+    for lane in range(3):
+        one = tude.bfgs_minimize(
+            lambda x, lane=lane: 0.5 * x @ A @ x - b[lane] @ x + (x ** 4).sum(), x0[lane],
+            maxiters=50, initial_stepnorm=0.01)
+        assert int(res.iterations[lane]) == int(one.iterations)
+        torch.testing.assert_close(res.params[lane], one.params, rtol=1e-10, atol=1e-10)

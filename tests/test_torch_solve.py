@@ -1,7 +1,9 @@
 """PyTorch port: solve, the stepper, step control and dense output against JAX.
 
-The same problem (the Fisher-KPP truth RHS, in float64) goes through both
-packages' ``solve``; step counts must be equal and trajectories agree to 1e-9.
+The same problem (the Fisher-KPP or Lotka-Volterra truth RHS, in float64)
+goes through both packages' ``solve``; step counts must be equal and
+trajectories agree to 1e-9.  Fixed-step integration agrees to 1e-12 and the
+error norms to 1e-14.
 """
 import dataclasses
 
@@ -216,3 +218,144 @@ def test_solve_rejects_bad_problems(case):
         if case == "not_callable":
             prob = tude.ODEProblem(None, u0, (0.0, 1.0))
         tude.solve(prob, **kwargs)
+
+
+def test_vern7_tableau_is_a_digit_for_digit_copy():
+    from universal_differential_equations_torch.solvers.tableaus import TABLEAUS as T
+    from universal_differential_equations_tpu.solvers.tableaus import TABLEAUS as J
+
+    assert dataclasses.asdict(T["Vern7"]) == dataclasses.asdict(J["Vern7"])
+    assert not T["Vern7"].fsal
+    assert tude.Vern7().dense_nodes == jude.Vern7().dense_nodes == 4
+
+
+def _lv_rhs(pkg_stack):
+    def rhs(t, u, p):
+        return pkg_stack([p[0] * u[0] - p[1] * u[0] * u[1], p[2] * u[0] * u[1] - p[3] * u[1]])
+    return rhs
+
+
+LV_P = np.array([1.3, 0.9, 0.8, 1.8])
+LV_U0 = np.array([0.44249296, 4.6280594])
+
+
+def test_vern7_lv_truth_matches_jax():
+    # the scenario's truth solve: Vern7 at 1e-12 landing on every save point.
+    # Vern7 is not FSAL: each attempt costs 10 RHS evaluations in both
+    # packages, after 3 for f(t0) and the automatic initial step
+    ts = np.arange(0.0, 3.05, 0.1)
+    kw = dict(rtol=1e-12, atol=1e-12, step_to_saveat=True)
+    sj = jude.solve(jude.ODEProblem(_lv_rhs(jnp.stack), jnp.asarray(LV_U0), (0.0, 3.0),
+                                    jnp.asarray(LV_P)), jude.Vern7(), saveat=jnp.asarray(ts),
+                    adjoint=jude.NoAdjoint(), **kw)
+    st = tude.solve(tude.ODEProblem(_lv_rhs(torch.stack), torch.tensor(LV_U0), (0.0, 3.0),
+                                    torch.tensor(LV_P)), tude.Vern7(), saveat=torch.tensor(ts),
+                    adjoint=tude.NoAdjoint(), **kw)
+    assert bool(st.success)
+    assert int(st.num_rhs_evals) == 3 + 10 * (int(st.num_accepted) + int(st.num_rejected))
+    _assert_same_solution(sj, st)
+
+
+@pytest.mark.parametrize("solver", ["Tsit5", "Vern7"])
+def test_integrate_fixed_matches_jax_and_lanes_match_single(solver):
+    from universal_differential_equations_torch.core.integrate import integrate_fixed as t_fixed
+    from universal_differential_equations_tpu.core.integrate import integrate_fixed as j_fixed
+
+    ts_j, ys_j = j_fixed(_lv_rhs(jnp.stack), jnp.asarray(LV_U0), 0.0, 3.0, jnp.asarray(LV_P),
+                         getattr(jude, solver)(), 24)
+    ts_t, ys_t = t_fixed(_lv_rhs(torch.stack), torch.tensor(LV_U0), 0.0, 3.0,
+                         torch.tensor(LV_P), getattr(tude, solver)(), 24)
+    assert ys_t.shape == (25, 2)
+    np.testing.assert_allclose(ts_t.numpy(), np.asarray(ts_j), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(ys_t.numpy(), np.asarray(ys_j), rtol=1e-12, atol=1e-12)
+
+    # lanes: (L, d) states with parameters batched along L; each lane equals
+    # its own single-state run
+    rng = np.random.default_rng(2)
+    u0s = LV_U0 * rng.uniform(0.8, 1.2, size=(3, 2))
+    ps = LV_P * rng.uniform(0.9, 1.1, size=(3, 4))
+
+    def lane_rhs(t, u, p):
+        return torch.stack([p[:, 0] * u[:, 0] - p[:, 1] * u[:, 0] * u[:, 1],
+                            p[:, 2] * u[:, 0] * u[:, 1] - p[:, 3] * u[:, 1]], -1)
+
+    _, ys_l = t_fixed(lane_rhs, torch.tensor(u0s), 0.0, 3.0, torch.tensor(ps),
+                      getattr(tude, solver)(), 24)
+    assert ys_l.shape == (3, 25, 2)
+    for lane in range(3):
+        _, ys_1 = t_fixed(_lv_rhs(torch.stack), torch.tensor(u0s[lane]), 0.0, 3.0,
+                          torch.tensor(ps[lane]), getattr(tude, solver)(), 24)
+        np.testing.assert_allclose(ys_l[lane].numpy(), ys_1.numpy(), rtol=1e-12, atol=1e-12)
+
+
+def test_hairer_seminorm_matches_jax():
+    from universal_differential_equations_torch.core import controller as tc
+    from universal_differential_equations_tpu.core import controller as jc
+
+    rng = np.random.default_rng(4)
+    err, y0, y1 = (rng.standard_normal(9) for _ in range(3))
+    w = (rng.uniform(size=9) > 0.4).astype(np.float64)
+    t = lambda a: torch.tensor(a, dtype=F64)  # noqa: E731
+    for weights in (w, np.zeros(9)):
+        np.testing.assert_allclose(
+            float(tc.hairer_norm(t(err), t(y0), t(y1), 1e-3, 1e-6, t(weights))),
+            float(jc.hairer_norm(err, y0, y1, 1e-3, 1e-6, jnp.asarray(weights))), rtol=1e-14)
+
+
+def test_err_weights_exclude_components_from_step_control():
+    # mirrors tests/test_adjoint.py::test_error_weights_seminorm_step_control,
+    # with the step counts held against the JAX package's
+    from universal_differential_equations_torch.core.integrate import integrate_while as t_while
+    from universal_differential_equations_tpu.core.integrate import integrate_while as j_while
+
+    def f_t(t, y, args):
+        return torch.stack([torch.cos(t), 200.0 * torch.cos(200.0 * t)])
+
+    def f_j(t, y, args):
+        return jnp.array([jnp.cos(t), 200.0 * jnp.cos(200.0 * t)])
+
+    y0 = np.zeros(2)
+    for w in (None, np.array([1.0, 0.0])):
+        rt = t_while(f_t, torch.tensor(y0), 0.0, 3.0, None, tude.Tsit5(), 1e-8, 1e-8, None, 8192,
+                     err_weights=None if w is None else torch.tensor(w))
+        rj = j_while(f_j, jnp.asarray(y0), 0.0, 3.0, None, jude.Tsit5(), 1e-8, 1e-8, None, 8192,
+                     err_weights=None if w is None else jnp.asarray(w))
+        assert bool(rt.success) and int(rt.n_acc) == int(rj.n_acc)
+        assert int(rt.n_rej) == int(rj.n_rej)
+        np.testing.assert_allclose(rt.y_final[0].numpy(), np.asarray(rj.y_final[0]),
+                                   rtol=1e-9, atol=1e-9)
+        if w is None:
+            # the 200 rad/s row integrates to sin(600) = 0.044: the packages'
+            # last-bit step-size differences move it by 6e-9, inside the
+            # solver's 1e-8 tolerance.  With weight 0 it is not controlled:
+            # the coarse steps alias the oscillation to an O(100) value that
+            # carries no accuracy to compare
+            np.testing.assert_allclose(rt.y_final[1].numpy(), np.asarray(rj.y_final[1]),
+                                       rtol=0.0, atol=1e-8)
+        else:
+            assert int(rt.n_acc) < 0.3 * n_full
+            assert abs(float(rt.y_final[0]) - np.sin(3.0)) < 1e-6
+        n_full = int(rt.n_acc)
+
+
+def test_default_adjoint_is_interpolating_with_the_4096_budget():
+    # solve() with no adjoint: InterpolatingAdjoint and its 4096-attempt
+    # budget in both packages.  This oscillator needs ~630 steps, past the
+    # discrete adjoint's 512, so a DiscreteAdjoint default would return
+    # success=False here; the gradients must agree.
+    ts = np.linspace(0.0, 3.0, 7)
+
+    def loss_j(p):
+        sol = jude.solve(jude.ODEProblem(lambda t, u, q: q[0] * jnp.stack([u[1], -u[0]]),
+                                         jnp.array([1.0, 0.0]), (0.0, 3.0), p),
+                         jude.Tsit5(), saveat=jnp.asarray(ts), rtol=1e-8, atol=1e-8)
+        return jnp.sum(sol.ys)
+
+    p = torch.tensor([20.0], dtype=F64, requires_grad=True)
+    sol = tude.solve(tude.ODEProblem(lambda t, u, q: q[0] * torch.stack([u[1], -u[0]]),
+                                     torch.tensor([1.0, 0.0], dtype=F64), (0.0, 3.0), p),
+                     tude.Tsit5(), saveat=torch.tensor(ts), rtol=1e-8, atol=1e-8)
+    assert bool(sol.success) and int(sol.num_accepted) > 512
+    (g_t,) = torch.autograd.grad(sol.ys.sum(), p)
+    g_j = np.asarray(jax.grad(loss_j)(jnp.array([20.0])))
+    np.testing.assert_allclose(g_t.numpy(), g_j, rtol=1e-9)

@@ -6,10 +6,9 @@ algorithm, and returns a ``Solution`` whose save-grid values are
 differentiable according to the chosen adjoint.  States may be pytrees of
 tensors; they are raveled to flat vectors internally and unraveled on output.
 
-Differences from the JAX package, while the port is partial: SDE and DAE
-problems raise ``TypeError``; the default adjoint is ``DiscreteAdjoint``
-(autograd through the stepping loop), because the JAX default,
-``InterpolatingAdjoint``, is not ported yet.
+The default adjoint is ``InterpolatingAdjoint``, as in the JAX package.
+Difference from the JAX package, while the port is partial: SDE and DAE
+problems raise ``TypeError``.
 """
 from __future__ import annotations
 
@@ -18,7 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .adjoint.sensitivity import AbstractAdjoint, DiscreteAdjoint
+from .adjoint.sensitivity import AbstractAdjoint, InterpolatingAdjoint
 from .core.controller import PIController
 from .core.problem import DAEProblem, ODEProblem, SDEProblem
 from .core.solution import Solution
@@ -74,9 +73,15 @@ def solve(
         filled by the order-matched dense output.
       rtol / atol: PI-controller tolerances.
       dt0: initial step; ``None`` uses Hairer's automatic selection.
-      max_steps: step-attempt budget.  Defaults to the adjoint's preference.
-      adjoint: ``NoAdjoint``, ``DiscreteAdjoint`` (default) or
-        ``ForwardSensitivity``.
+      max_steps: step-attempt budget.  Defaults to the adjoint's preference —
+        4096 for the while-loop paths, 512 for the discrete adjoint.
+      adjoint: sensitivity algorithm; defaults to ``InterpolatingAdjoint()``.
+        It works under ``torch.autograd``, ``torch.func.grad`` and
+        ``torch.func.vjp``.  Under ``torch.func.jacfwd`` use
+        ``ForwardSensitivity``: the continuous adjoints have no forward-mode
+        rule.  Under ``torch.func.vmap`` they raise ``NotImplementedError``;
+        ``DiscreteAdjoint`` is no better there, as each lane's adaptive loop
+        takes its own number of steps.
       dense: attach continuous output so ``sol(t)`` / ``sol(t, nu=1)`` work.
       controller: step-size controller.
       step_to_saveat: force accepted steps to land exactly on the ``saveat``
@@ -93,7 +98,7 @@ def solve(
         raise TypeError(f"unsupported problem type {type(problem)}")
 
     solver = Tsit5() if solver is None else solver
-    adjoint = DiscreteAdjoint() if adjoint is None else adjoint
+    adjoint = InterpolatingAdjoint() if adjoint is None else adjoint
     controller = PIController() if controller is None else controller
     if max_steps is None:
         max_steps = adjoint.default_max_steps

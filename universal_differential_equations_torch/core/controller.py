@@ -13,15 +13,21 @@ import torch
 __all__ = ["PIController", "hairer_norm", "initial_step_size"]
 
 
-def hairer_norm(err, y0, y1, rtol, atol):
+def hairer_norm(err, y0, y1, rtol, atol, weights=None):
     """Scaled RMS error norm: sqrt(mean((err / (atol + rtol*max|y|))^2)).
 
-    (The JAX version's seminorm ``weights`` serve the continuous adjoints,
-    which are not ported yet.)
+    ``weights`` (optional, same shape as the state) turns this into a
+    *seminorm*: components with weight 0 are excluded from step control.  The
+    continuous adjoints use it to drop the passively integrated
+    parameter-quadrature rows from the backward error test (arXiv:2009.09457).
     """
     scale = atol + rtol * torch.maximum(y0.abs(), y1.abs())
     ratio = err / scale
-    norm = torch.sqrt(torch.mean(ratio * ratio))
+    if weights is None:
+        norm = torch.sqrt(torch.mean(ratio * ratio))
+    else:
+        w = weights.to(ratio.dtype)
+        norm = torch.sqrt(torch.sum(w * ratio * ratio) / torch.clamp(w.sum(), min=1.0))
     # non-finite errors (NaN blowups) map to a huge-but-finite value so the
     # controller rejects and shrinks instead of poisoning dt with NaN
     return torch.where(torch.isfinite(norm), norm, torch.full_like(norm, 1e10))

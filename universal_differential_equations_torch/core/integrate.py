@@ -8,6 +8,8 @@ drivers share one attempt-step core (solver-agnostic):
   ``DiscreteAdjoint`` and ``ForwardSensitivity``.  It also accumulates the
   differentiable ``err_sum``; ``checkpoint=True`` recomputes each attempt in
   the backward pass instead of storing its stages.
+* ``integrate_fixed`` — equal steps with no controller, for one state or a
+  leading lane dimension of independent states.
 
 The JAX drivers are one device program each (a ``while_loop`` or a
 ``max_steps``-long ``scan`` whose body passes the state through once ``done``
@@ -40,7 +42,7 @@ from torch.utils.checkpoint import checkpoint as _checkpoint
 from .controller import PIController, hairer_norm, initial_step_size
 from .solution import DenseInterpolation
 
-__all__ = ["integrate_while", "integrate_scan", "IntegrateResult"]
+__all__ = ["integrate_while", "integrate_scan", "integrate_fixed", "IntegrateResult"]
 
 
 class _State(NamedTuple):
@@ -124,12 +126,13 @@ def _setup(f, y0, t0, t1, args, solver, rtol, atol, dt0):
 
 
 def _attempt(f_int, solver, controller, rtol, atol, tau1, state, args, dtype,
-             tstops=None, track_err=False):
+             tstops=None, track_err=False, err_weights=None):
     """One controller-supervised step attempt.
 
     Returns ``(state', accept, t_new, y1, f1, err_diff)``; ``err_diff`` is
     None unless ``track_err``.  ``tstops`` (internal time, ascending) forces
-    accepted steps to land exactly on those points.
+    accepted steps to land exactly on those points.  ``err_weights`` makes
+    the controller's error norm a seminorm (``hairer_norm``).
     """
     if tstops is None:
         next_stop = tau1
@@ -145,7 +148,7 @@ def _attempt(f_int, solver, controller, rtol, atol, tau1, state, args, dtype,
     # controller scalars are non-differentiable: computed from detached values
     y_det = state.y.detach()
     y1_det = y1.detach()
-    err = hairer_norm(y_err.detach(), y_det, y1_det, rtol, atol)
+    err = hairer_norm(y_err.detach(), y_det, y1_det, rtol, atol, err_weights)
     err_diff = None
     if track_err:
         # differentiable error accumulator (arXiv:2105.03918), ε-smoothed, with
@@ -182,7 +185,7 @@ def _attempt(f_int, solver, controller, rtol, atol, tau1, state, args, dtype,
 
 
 def _loop(f, y0, t0, t1, args, solver, rtol, atol, dt0, max_steps, controller,
-          tstops, track_err, checkpoint):
+          tstops, track_err, checkpoint, err_weights=None):
     f_int, state, tau0, tau1, direction, dtype = _setup(
         f, y0, t0, t1, args, solver, rtol, atol, dt0
     )
@@ -195,7 +198,7 @@ def _loop(f, y0, t0, t1, args, solver, rtol, atol, dt0, max_steps, controller,
     def attempt(*fields):
         new, accept, t_new, y1, f1, err_diff = _attempt(
             f_int, solver, controller, rtol, atol, tau1, _State(*fields), args,
-            dtype, tstops, track_err=track_err,
+            dtype, tstops, track_err=track_err, err_weights=err_weights,
         )
         return (*new, torch.where(accept, t_new, inf), y1, f1, err_diff)
 
@@ -248,11 +251,16 @@ def _loop(f, y0, t0, t1, args, solver, rtol, atol, dt0, max_steps, controller,
 
 def integrate_while(
     f, y0, t0, t1, args, solver, rtol, atol, dt0=None, max_steps=4096,
-    controller=PIController(), tstops=None,
+    controller=PIController(), tstops=None, err_weights=None,
 ):
-    """Forward-only adaptive solve: at most ``max_steps`` attempts."""
+    """Forward-only adaptive solve: at most ``max_steps`` attempts.
+
+    ``err_weights`` (same shape as the state) excludes its zero-weight
+    components from step control (the adjoint seminorm).
+    """
     return _loop(f, y0, t0, t1, args, solver, rtol, atol, dt0, max_steps,
-                 controller, tstops, track_err=False, checkpoint=False)
+                 controller, tstops, track_err=False, checkpoint=False,
+                 err_weights=err_weights)
 
 
 def integrate_scan(
@@ -262,3 +270,31 @@ def integrate_scan(
     """Bounded differentiable adaptive solve (reverse and forward mode)."""
     return _loop(f, y0, t0, t1, args, solver, rtol, atol, dt0, max_steps,
                  controller, tstops, track_err=True, checkpoint=checkpoint)
+
+
+def integrate_fixed(f, y0, t0, t1, args, solver, n_steps):
+    """Fixed-step integration over ``n_steps`` equal steps (no controller).
+
+    Differentiable in both modes.  ``y0`` is one state ``(d,)`` or a lane
+    batch ``(L, d)`` of independent states sharing the time grid; for lanes,
+    ``f(t, y, args)`` receives the ``(L, d)`` batch with ``args`` batched
+    along ``L`` as the caller built them, and must act on each lane alone —
+    the counterpart of ``jax.vmap(integrate_fixed)``.  Returns ``(ts, ys)``
+    including the initial point: ``ts`` is ``(n_steps+1,)``; ``ys`` is
+    ``(n_steps+1, d)`` for one state and ``(L, n_steps+1, d)`` for lanes.
+    """
+    y0 = torch.as_tensor(y0)
+    dtype, device = y0.dtype, y0.device
+    t0 = torch.as_tensor(t0, dtype=dtype, device=device)
+    t1 = torch.as_tensor(t1, dtype=dtype, device=device)
+    dt = (t1 - t0) / n_steps
+    t, y = t0, y0
+    fval = f(t0, y0, args)
+    ts, ys = [t0], [y0]
+    for i in range(n_steps):
+        y, _, fval, _ = solver.step(f, t, y, fval, dt, args)
+        t = t0 + (i + 1) * dt
+        ts.append(t)
+        ys.append(y)
+    ys = torch.stack(ys)
+    return torch.stack(ts), (ys.movedim(0, 1) if y0.ndim == 2 else ys)

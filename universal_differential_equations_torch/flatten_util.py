@@ -13,14 +13,15 @@ from typing import Any, Callable, List, Tuple
 
 import torch
 
-__all__ = ["ravel_pytree"]
+__all__ = ["ravel_pytree", "tree_flatten"]
 
 
-def _flatten(tree) -> Tuple[List[torch.Tensor], Callable[[List], Any]]:
-    """Leaves in JAX order and a function that rebuilds the tree from them."""
+def tree_flatten(tree) -> Tuple[List[torch.Tensor], Callable[[List], Any]]:
+    """``(leaves, build)``: the tree's tensors in JAX order, and a function
+    that rebuilds a tree of the same structure from a list of leaves."""
     if isinstance(tree, dict):
         keys = sorted(tree)
-        parts = [_flatten(tree[k]) for k in keys]
+        parts = [tree_flatten(tree[k]) for k in keys]
         leaves = [leaf for p in parts for leaf in p[0]]
         sizes = [len(p[0]) for p in parts]
 
@@ -33,7 +34,7 @@ def _flatten(tree) -> Tuple[List[torch.Tensor], Callable[[List], Any]]:
 
         return leaves, build
     if isinstance(tree, (list, tuple)):
-        parts = [_flatten(t) for t in tree]
+        parts = [tree_flatten(t) for t in tree]
         leaves = [leaf for p in parts for leaf in p[0]]
         sizes = [len(p[0]) for p in parts]
         kind = type(tree)
@@ -60,7 +61,7 @@ def ravel_pytree(tree):
     ``(*batch, size)``, and returns the tree with leaves of shape
     ``(*batch, *leaf.shape)``.
     """
-    leaves, build = _flatten(tree)
+    leaves, build = tree_flatten(tree)
     shapes = [leaf.shape for leaf in leaves]
     sizes = [leaf.numel() for leaf in leaves]
     if len(leaves) == 1:  # a bare tensor state: a view, no copy

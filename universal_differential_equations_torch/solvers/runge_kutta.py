@@ -1,4 +1,4 @@
-"""Explicit Runge-Kutta solvers as static step objects (slice A: Tsit5).
+"""Explicit Runge-Kutta solvers as static step objects: Tsit5 and Vern7.
 
 Port of ``universal_differential_equations_tpu/solvers/runge_kutta.py``.  The
 stage loop is unrolled in Python over the tableau's static coefficients; every
@@ -9,6 +9,8 @@ solver-agnostic:
     y1, y_err, f1, nfe = solver.step(f, t, y, f0, dt, args)
 
 where ``f0 = f(t, y, args)`` is carried between steps (free for FSAL methods).
+A non-FSAL tableau (Vern7) pays one more RHS evaluation per attempt for
+``f1`` and counts it in ``nfe``.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import dataclasses
 
 from .tableaus import TABLEAUS, ButcherTableau
 
-__all__ = ["AbstractERK", "Tsit5"]
+__all__ = ["AbstractERK", "Tsit5", "Vern7"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,7 +39,7 @@ class AbstractERK:
     def dense_nodes(self):
         """Hermite-window size for order-matched dense output: ``m`` step
         points give a degree-``2m−1`` interpolant, ``m = ceil((order+1)/2)``
-        (quintic for Tsit5)."""
+        (quintic for Tsit5, septic for Vern7)."""
         return min(4, max(2, (self.tableau.order + 2) // 2))
 
     def step(self, f, t, y, f0, dt, args):
@@ -81,3 +83,12 @@ class Tsit5(AbstractERK):
 
     def __init__(self):
         AbstractERK.__init__(self, TABLEAUS["Tsit5"])
+
+
+@dataclasses.dataclass(frozen=True, init=False)
+class Vern7(AbstractERK):
+    """Verner 'most efficient' 7(6), not FSAL — truth generation at 1e-12
+    tolerances (``scenario_1.jl:41``)."""
+
+    def __init__(self):
+        AbstractERK.__init__(self, TABLEAUS["Vern7"])

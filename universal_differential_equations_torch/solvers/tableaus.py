@@ -1,10 +1,10 @@
-"""Butcher tableaus for the explicit Runge-Kutta family (slice A: Tsit5).
+"""Butcher tableaus for the explicit Runge-Kutta family: Tsit5 and Vern7.
 
-A verbatim copy of the Tsit5 table in
+A verbatim copy of the Tsit5 and Vern7 tables in
 ``universal_differential_equations_tpu/solvers/tableaus.py``.  The JAX file
 itself imports no JAX, but importing it through its package runs that
 package's ``__init__``, which imports ``jax``; the port must not.  A CPU test
-(``tests/test_torch_solve.py``) checks the two tables are equal digit for
+(``tests/test_torch_solve.py``) checks the tables are equal digit for
 digit.
 
 A tableau is a static (hashable) container of Python float tuples; the RK
@@ -91,4 +91,108 @@ _TSIT5 = ButcherTableau(
     fsal=True,
 )
 
-TABLEAUS = {"Tsit5": _TSIT5}
+# ---------------------------------------------------------------------------
+# Verner-style "most efficient" 7(6) pair — the reference's Vern7 role:
+# 1e-12-tolerance truth generation (``scenario_1.jl:41``).  Not FSAL.
+# Coefficients certified by directly solving the full order-condition system
+# (all 85 rooted-tree conditions for b at order 7, all 37 for the embedded
+# 6th-order b_err companion, plus non-autonomous consistency c = A·1) to a
+# residual of 9e-15 — see tools/derive_tableaus.py.  Order re-checked
+# empirically in tests/test_solver_convergence.py.
+# ---------------------------------------------------------------------------
+_VERN7 = ButcherTableau(
+    name="Vern7",
+    order=7,
+    error_order=7,
+    c=(
+        0.0,
+        0.005,
+        0.10888888888888903,
+        0.16333333333333333,
+        0.4555,
+        0.609509448997837,
+        0.884,
+        0.925,
+        1.0,
+        1.0,
+    ),
+    a=(
+        (),
+        (0.005,),
+        (-1.076790123456801, 1.18567901234569),
+        (0.04083333333333167, 0.0, 0.12250000000000166),
+        (0.6389139236256121, 0.0, -2.4556726382237826, 2.2722587145981707),
+        (
+            -2.6615773750225533,
+            0.0,
+            10.804513886470994,
+            -8.353914657407904,
+            0.8204875949572996,
+        ),
+        (
+            6.067741434710549,
+            0.0,
+            -24.711273635966275,
+            20.42751793083305,
+            -1.9061579788196872,
+            1.0061722492423653,
+        ),
+        (
+            12.054670076280276,
+            0.0,
+            -49.75478495057776,
+            41.142888638691815,
+            -4.4617601499798445,
+            2.042334822239497,
+            -0.09834843665398443,
+        ),
+        (
+            10.138146522915598,
+            0.0,
+            -42.64113603185584,
+            35.76384004003483,
+            -4.348022840402217,
+            2.009862268378625,
+            0.34874904603396045,
+            -0.27143900510496327,
+        ),
+        (
+            -45.03007203439894,
+            0.0,
+            187.32724376586148,
+            -154.0288236938242,
+            18.564653063496642,
+            -7.141809679296019,
+            1.3088085781610208,
+            0.0,
+            0.0,
+        ),
+    ),
+    b=(
+        0.047155618486278965,
+        0.0,
+        0.0,
+        0.2575056429843211,
+        0.2621665397741882,
+        0.15216092656730212,
+        0.4939969170035218,
+        -0.29430311714060786,
+        0.08131747232499571,
+        0.0,
+    ),
+    b_err=(
+        0.002547011879937708,
+        0.0,
+        0.0,
+        -0.009658394872816722,
+        0.04206470975646179,
+        -0.06668224374701659,
+        0.2650097464624077,
+        -0.29430311714060786,
+        0.08131747232499571,
+        -0.02029518466336179,
+    ),
+    fsal=False,
+)
+
+TABLEAUS = {t.name: t for t in (_TSIT5, _VERN7)}
