@@ -102,6 +102,18 @@ def test_func_grad_through_the_default_adjoint_matches_jax(lv_case):
     assert _rel(g_t, _jax_grad(lv_case, None)) <= 1e-7
 
 
+def test_func_grad_through_checkpointed_discrete_adjoint_matches_jax(lv_case, discrete_grad):
+    # DiscreteAdjoint() checkpoints its attempts (checkpoint=True), whose
+    # saved-tensor hooks torch.func.grad refuses; under the transform the loop
+    # runs uncheckpointed and gives jax.grad's gradient (1e-9 relative) and
+    # torch.autograd's checkpointed one
+    assert tude.DiscreteAdjoint().checkpoint
+    flat = travel(lv_case["p_t"])[0]
+    g_t = torch.func.grad(_torch_loss(lv_case, tude.DiscreteAdjoint()))(flat).numpy()
+    assert _rel(g_t, _jax_grad(lv_case, jude.DiscreteAdjoint())) <= 1e-9
+    assert _rel(g_t, discrete_grad) <= 1e-12
+
+
 @pytest.mark.parametrize("transform", ["vmap", "jacfwd"])
 def test_unsupported_transforms_raise_a_named_error(lv_case, transform):
     # no forward-mode rule and no vmap rule: both say what to use instead

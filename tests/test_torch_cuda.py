@@ -116,6 +116,76 @@ def test_kernel_raises_instead_of_falling_back(cuda_device):
         stencil.fused_updet_rhs(u, taps, d0, wide)
 
 
+ODD = (1, 7, 5, 1)  # no compiled kernel: the runtime-width path
+
+
+@pytest.mark.parametrize("sizes", [tuple(v) for v in tfk._MLP_VARIANTS.values()] + [ODD])
+@pytest.mark.parametrize("n", [1, 26, 257, 1048576])
+def test_each_compiled_net_and_the_generic_path_match_plain(cuda_device, sizes, n):
+    args = _inputs(5, n, cuda_device, sizes)
+    before, generic = stencil.launches, stencil.generic_launches
+    out = stencil.fused_updet_rhs(*args)
+    torch.cuda.synchronize()
+    assert stencil.launches == before + 1
+    assert stencil.generic_launches == generic + (sizes == ODD)
+    torch.testing.assert_close(out, stencil.updet_rhs_torch(*args), **TOL)
+
+
+def _tangents(seed, T, u, taps, d0, mlp):
+    g = torch.Generator().manual_seed(seed)
+    draw = lambda shape: torch.randn((T, *shape), generator=g).to(u.device)  # noqa: E731
+    return (draw(u.shape), draw(taps.shape), draw(d0.shape),
+            [(draw(w.shape), draw(b.shape)) for w, b in mlp])
+
+
+@pytest.mark.parametrize("sizes", [PAPER, ODD])
+def test_tangent_kernel_matches_plain_at_the_main_path_shape(cuda_device, sizes):
+    # kernel B: T = 465 directions (the paper net's parameter count) at N = 26,
+    # in one launch, against the plain tangent; rtol = atol = 1e-4
+    u, taps, d0, mlp = _inputs(6, 26, cuda_device, sizes)
+    du, dtaps, dd0, dmlp = _tangents(60, 465, u, taps, d0, mlp)
+    before = stencil.tangent_launches
+    out = stencil.fused_updet_rhs_tangent(u, taps, d0, mlp, du, dtaps, dd0, dmlp)
+    torch.cuda.synchronize()
+    assert stencil.tangent_launches == before + 1
+    ref = stencil.updet_rhs_jvp(u, taps, d0, mlp, du, dtaps, dd0, dmlp)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_jacfwd_through_the_model_rhs_matches_cpu(cuda_device):
+    # the LM main path's transform on one RHS call: kernel A for the primal,
+    # kernel B for all 465 directions, against the plain path on the CPU
+    from universal_differential_equations_torch.flatten_util import ravel_pytree
+
+    rhs, params = tfk.make_model(torch.Generator().manual_seed(0), "mlp", device=cuda_device)
+    rhs_cpu, params_cpu = tfk.make_model(torch.Generator().manual_seed(0), "mlp")
+    u = torch.rand(tfk.NX, generator=torch.Generator().manual_seed(2))
+    flat, unravel = ravel_pytree(params)
+    flat_cpu, unravel_cpu = ravel_pytree(params_cpu)
+    before = (stencil.launches, stencil.tangent_launches)
+    J = torch.func.jacfwd(lambda x: rhs(0.0, u.to(cuda_device), unravel(x)))(flat)
+    torch.cuda.synchronize()
+    assert (stencil.launches, stencil.tangent_launches) == (before[0] + 1, before[1] + 1)
+    J_cpu = torch.func.jacfwd(lambda x: rhs_cpu(0.0, u, unravel_cpu(x)))(flat_cpu)
+    assert J.shape == (tfk.NX, 465)
+    torch.testing.assert_close(J.cpu(), J_cpu, rtol=1e-4, atol=1e-4)
+
+
+def test_compiled_kernel_with_other_widths_raises(cuda_device):
+    # a launch of a compiled net with widths it was not compiled for raises;
+    # it does not switch to the runtime-width kernel or to PyTorch
+    u, taps, d0, mlp = _inputs(7, 64, cuda_device, sizes=(1, 3, 1))
+    paper = stencil._library().nets.index(PAPER)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        stencil._launch(u, taps, d0, mlp, (1, 3, 1), net=paper)
+    du, dtaps, dd0, dmlp = _tangents(70, 2, u, taps, d0, mlp)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        stencil._launch_tangent(u, taps, d0, mlp, (1, 3, 1), du, dtaps, dd0, dmlp, net=paper)
+    with pytest.raises(ValueError):
+        stencil.fused_updet_rhs_tangent(u, taps, d0, mlp, du.transpose(0, 1).contiguous()
+                                        .transpose(0, 1), dtaps, dd0, dmlp)
+
+
 def test_model_rhs_goes_through_the_kernel(cuda_device):
     rhs, params = tfk.make_model(torch.Generator().manual_seed(0), "mlp", device=cuda_device)
     rhs_cpu, params_cpu = tfk.make_model(torch.Generator().manual_seed(0), "mlp")

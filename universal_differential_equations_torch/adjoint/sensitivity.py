@@ -83,7 +83,10 @@ class DiscreteAdjoint(AbstractAdjoint):
 
     ``checkpoint=True`` recomputes each attempt in the backward pass,
     keeping reverse-mode memory at one state per step instead of all RK
-    stages.
+    stages.  Under a ``torch.func`` transform (``grad``, ``vjp``,
+    ``jacrev``), which refuses ``torch.utils.checkpoint``'s saved-tensor
+    hooks, the attempts run without recomputation: the same gradient, with
+    all stages kept.
 
     Caveat (as in the JAX package): if a *rejected* attempt overflows to
     inf/NaN, the backward pass still differentiates that attempt, and the

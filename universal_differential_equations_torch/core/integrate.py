@@ -7,7 +7,8 @@ drivers share one attempt-step core (solver-agnostic):
 * ``integrate_scan`` — the bounded, differentiable loop behind
   ``DiscreteAdjoint`` and ``ForwardSensitivity``.  It also accumulates the
   differentiable ``err_sum``; ``checkpoint=True`` recomputes each attempt in
-  the backward pass instead of storing its stages.
+  the backward pass instead of storing its stages (outside ``torch.func``
+  transforms, which refuse the checkpoint's saved-tensor hooks).
 * ``integrate_fixed`` — equal steps with no controller, for one state or a
   leading lane dimension of independent states.
 
@@ -204,6 +205,11 @@ def _loop(f, y0, t0, t1, args, solver, rtol, atol, dt0, max_steps, controller,
 
     y0_arr, f0 = state.y, state.f
     out_t, out_y, out_f, out_err = [], [], [], []
+    # torch.func.{grad, vjp, jacrev} refuse the saved-tensor hooks that
+    # torch.utils.checkpoint installs, so under a torch.func transform the
+    # attempts run uncheckpointed: the same numbers, with every attempt's
+    # stages kept for the backward pass
+    checkpoint = checkpoint and torch._C._functorch.peek_interpreter_stack() is None
     for _ in range(max_steps):
         if bool(state.done):
             break

@@ -6,7 +6,8 @@ compiled with ``nvcc`` for ``sm_90a`` into one shared library under
 ``ctypes``.  The library is rebuilt whenever the hash of the sources and the
 build command changes.  Nothing is built when this module is imported: the
 CPU tests import every module, and a machine without ``nvcc`` never builds.
-``chip_smoke.py`` prints the compiler's register and shared-memory report.
+``chip_smoke.py`` prints the compiler's register, stack-frame and spill
+report and the instruction counts of each kernel.
 """
 from __future__ import annotations
 
@@ -30,7 +31,8 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lib = None
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin``, or ``PATH``."""
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
     cand = Path(cuda_home) / "bin" / "nvcc"
     if cand.exists():
@@ -54,7 +56,7 @@ def build(force: bool = False) -> dict:
     """Compile the library unless an up-to-date one exists.
 
     Returns ``{"path", "built", "seconds", "log"}``; ``log`` is the compiler's
-    output (``-Xptxas -v``: registers, shared memory and spills per kernel).
+    output (``-Xptxas -v``: registers, stack frame and spills per kernel).
     """
     digest = _digest()
     stamp = LIB_PATH.with_name(LIB_PATH.name + ".sha256")
@@ -65,7 +67,7 @@ def build(force: bool = False) -> dict:
     # build under a private name, then rename: concurrent builders never see
     # a half-written library
     tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
+    cmd = [nvcc(), *_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -80,23 +82,44 @@ def build(force: bool = False) -> dict:
     return {"path": str(LIB_PATH), "built": True, "seconds": seconds, "log": log}
 
 
+def _bind(lib):
+    """Set the C signatures of a loaded library and read what it reports:
+    ``lib.limits`` (threads per block of the runtime-width kernel, max layers,
+    max width, max staged floats) and ``lib.nets`` (the width tuples compiled
+    as specialised kernels, in the library's order)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    pi = ctypes.POINTER(i)
+    lib.ude_updet_rhs.argtypes = [i, p, p, p, pi, i, i, i, p]
+    lib.ude_updet_rhs.restype = i
+    lib.ude_updet_rhs_tangent.argtypes = [i, p, p, p, p, p, pi, i, i, i, i, p]
+    lib.ude_updet_rhs_tangent.restype = i
+    lib.ude_empty.argtypes = [p]
+    lib.ude_empty.restype = i
+    lib.ude_error_string.argtypes = [i]
+    lib.ude_error_string.restype = ctypes.c_char_p
+    lib.ude_limits.argtypes = [pi]
+    lib.ude_limits.restype = None
+    lib.ude_nets.argtypes = [pi, i]
+    lib.ude_nets.restype = i
+    limits = (i * 4)()
+    lib.ude_limits(limits)
+    lib.limits = tuple(limits)
+    size = lib.ude_nets(None, 0)
+    buf = (i * size)()
+    lib.ude_nets(buf, size)
+    nets, k = [], 0
+    while k < size:
+        n_layers = buf[k]
+        nets.append(tuple(buf[k + 1:k + 2 + n_layers]))
+        k += 2 + n_layers
+    lib.nets = tuple(nets)
+    return lib
+
+
 def load():
     """The loaded library, built first if needed, with its C signatures set."""
     global _lib
     if _lib is None:
         build()
-        lib = ctypes.CDLL(str(LIB_PATH))
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        lib.ude_updet_rhs.argtypes = [p, p, p, i, ctypes.POINTER(i), i, i, i, p]
-        lib.ude_updet_rhs.restype = i
-        lib.ude_error_string.argtypes = [i]
-        lib.ude_error_string.restype = ctypes.c_char_p
-        lib.ude_limits.argtypes = [ctypes.POINTER(i)]
-        lib.ude_limits.restype = None
-        limits = (i * 4)()
-        lib.ude_limits(limits)
-        # (block size, max layers, max width, max packed floats)
-        lib.limits = tuple(limits)
-        _lib = lib
+        _lib = _bind(ctypes.CDLL(str(LIB_PATH)))
     return _lib
