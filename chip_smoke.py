@@ -40,8 +40,8 @@ Phases, in order; any failure raises and the script exits non-zero:
        full 2→5→5→5→2 RBF model against the discrete adjoint (float32 at
        1e-6: relative 1e-3; float64 at 1e-8: relative 1e-6), against the
        CPU float64 port (relative 1e-9) and under ``torch.func.grad``
-       (relative 1e-12), with the median seconds per gradient over 10 calls;
-   (c) 20 ADAM steps (float32) and 20 BFGS iterations (float64): the loss is
+       (relative 1e-12), with the median seconds per gradient over 5 calls;
+   (c) 10 ADAM steps (float32) and 10 BFGS iterations (float64): the loss is
        finite and falls;
    (d) SINDy (polynomial degree 5 + sin, the scenario's λ grid) on the true
        interactions selects exactly x·y per equation, at −0.9 and 0.8 to 1e-6;
@@ -54,6 +54,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    (c), (e) and (f) call the pipeline's own stages
    (``examples/lv_scenario_1.py``: ``make_loss``, ``refit``, ``extrapolate``,
    ``judge_loss``).
+7. Lanes and shooting: ``torch.func.vmap`` over adaptive solves on the card.
+   (a) 8 Lotka-Volterra lanes (float64, rtol 1e-8) under each adjoint: every
+       lane takes its solo solve's accepted/rejected/RHS counts exactly, and
+       its saved states to 1e-12 relative; ``vmap`` of ``grad`` equals the
+       solo gradients (two lanes) to 1e-10 for the discrete and the three
+       continuous adjoints;
+   (b) 8 Fisher-KPP initial conditions of the MLP model (float32) in one
+       vmapped solve: kernel A launches with rows = 8 (its multi-row grid),
+       each lane's states agree with its solo solve's and with the plain
+       RHS's vmapped solve on the CPU to 1e-3 of their largest value (rtol
+       1e-4 in float32: a rounding difference may flip an accept/reject; the
+       lanes with the solo solve's step counts are reported);
+   (c) the Hudson Bay shooting loss's gradient (``examples/hudson_bay.py``'s
+       ``shooting_loss``: one vmapped solve over 5 segments) in float32 and
+       float64, against a Python loop over the 5 segment solves (float64,
+       1e-10), timed;
+   (d) two scenario-2 LM iterations (``examples/lv_scenario_2.py``'s
+       residuals, 5 vmapped ``ForwardSensitivity`` segments under
+       ``jacfwd``, float32): the loss is finite and does not rise.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel with
 its bound on the card (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s float32); the
@@ -540,7 +559,7 @@ def phase_lv(device, card):
         (g,) = torch.autograd.grad(loss, x)
         return loss.detach(), g
 
-    def median_s(fn, calls=10):
+    def median_s(fn, calls=5):
         walls = []
         for _ in range(calls):
             _sync()
@@ -576,28 +595,28 @@ def phase_lv(device, card):
            f"discrete rel {r32:.3e} (1e-3), f64 vs discrete rel {r64:.3e} (1e-6), "
            f"f64 card vs cpu rel {r_cpu:.3e} (1e-9), torch.func.grad vs autograd rel "
            f"{r_fn:.3e} (1e-12)")
-    log(f"[lv b] seconds per gradient, median of 10: float32 {s32:.4f} s "
+    log(f"[lv b] seconds per gradient, median of 5: float32 {s32:.4f} s "
         f"({1 / s32:.3f} grad steps/s), float64 {s64:.4f} s on {card}")
 
-    # (c) short training through the pipeline's loss: 20 ADAM steps (float32),
-    # then 20 BFGS iterations (float64)
+    # (c) short training through the pipeline's loss: 10 ADAM steps (float32),
+    # then 10 BFGS iterations (float64)
     t0 = time.perf_counter()
     loss32 = scen.make_loss(rhs, Xn32, ts32, 1e-6)
     l0 = float(loss32(params0))
-    res1 = ude.fit(loss32, params0, lambda ps: torch.optim.Adam(ps, lr=0.1), 20,
-                   callback_every=20)
+    res1 = ude.fit(loss32, params0, lambda ps: torch.optim.Adam(ps, lr=0.1), 10,
+                   callback_every=10)
     _sync()
     t_adam = time.perf_counter() - t0
     loss64 = scen.make_loss(rhs, X_noisy64, ts64, 1e-8)
     p64 = [{k: v.double() for k, v in layer.items()} for layer in res1.params]
     l1 = float(loss64(p64))
     t0 = time.perf_counter()
-    res2 = ude.bfgs_minimize(loss64, p64, maxiters=20, initial_stepnorm=0.01, gtol=1e-12)
+    res2 = ude.bfgs_minimize(loss64, p64, maxiters=10, initial_stepnorm=0.01, gtol=1e-12)
     _sync()
     t_bfgs = time.perf_counter() - t0
     l2 = float(res2.value)
     _check(math.isfinite(l2) and res1.final_loss < l0 and l2 < l1,
-           f"[lv c] ADAM 20 steps (f32): loss {l0:.6g} -> {res1.final_loss:.6g} in "
+           f"[lv c] ADAM 10 steps (f32): loss {l0:.6g} -> {res1.final_loss:.6g} in "
            f"{t_adam:.2f} s; BFGS {int(res2.iterations)} iterations, "
            f"{int(res2.num_evals)} evaluations (f64): {l1:.6g} -> {l2:.6g} in {t_bfgs:.2f} s")
 
@@ -665,6 +684,186 @@ def phase_lv(device, card):
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+def phase_lanes(device, card):
+    """Phase 7: lanes and shooting (see the module docstring)."""
+    import numpy as np
+    import torch
+    import universal_differential_equations_torch as ude
+    from universal_differential_equations_torch.examples import hudson_bay as hb
+    from universal_differential_equations_torch.examples import lv_scenario_2 as s2
+    from universal_differential_equations_torch.flatten_util import ravel_pytree
+    from universal_differential_equations_torch.models import fisher_kpp as fk
+    from universal_differential_equations_torch.models import lotka_volterra as lv
+    from universal_differential_equations_torch.ops import stencil
+
+    f64 = torch.float64
+    stencil.launches = stencil.tangent_launches = stencil.generic_launches = 0
+    t_phase = time.perf_counter()
+
+    # (a) 8 LV lanes, each adjoint
+    rng = np.random.default_rng(7)
+    u0s = torch.tensor(rng.uniform(0.5, 3.0, (8, 2)), dtype=f64, device=device)
+    ps = torch.tensor(np.array([1.3, 0.9, 0.8, 1.8]) * rng.uniform(0.8, 1.2, (8, 4)),
+                      dtype=f64, device=device)
+    ts = torch.linspace(0.0, 3.0, 7, dtype=f64, device=device)
+
+    def lv_solve(u0, p, adj):
+        sol = ude.solve(ude.ODEProblem(lv.lotka_rhs, u0, (0.0, 3.0), p), ude.Tsit5(),
+                        saveat=ts, rtol=1e-8, atol=1e-8, adjoint=adj)
+        return sol.ys, sol.num_accepted, sol.num_rejected, sol.num_rhs_evals
+
+    def lv_loss(adj):
+        return lambda p, u0: (lv_solve(u0, p, adj)[0] ** 2).sum()
+
+    t0 = time.perf_counter()
+    worst, steps = 0.0, {}
+    for name in ("NoAdjoint", "DiscreteAdjoint", "ForwardSensitivity", "InterpolatingAdjoint",
+                 "BacksolveAdjoint", "QuadratureAdjoint"):
+        adj = getattr(ude, name)()
+        ys, n_acc, n_rej, nfe = torch.func.vmap(lambda u0, p: lv_solve(u0, p, adj))(u0s, ps)
+        for i in range(8):
+            s_ys, *counts = lv_solve(u0s[i], ps[i], adj)
+            if [int(c) for c in counts] != [int(n_acc[i]), int(n_rej[i]), int(nfe[i])]:
+                raise AssertionError(f"[lanes a] {name} lane {i}: counts "
+                                     f"{[int(n_acc[i]), int(n_rej[i]), int(nfe[i])]} vs solo "
+                                     f"{[int(c) for c in counts]}")
+            worst = max(worst, _rel(ys[i], s_ys))
+        steps[name] = n_acc.tolist()
+    g_worst = 0.0
+    for name in ("DiscreteAdjoint", "InterpolatingAdjoint", "BacksolveAdjoint",
+                 "QuadratureAdjoint"):
+        loss = lv_loss(getattr(ude, name)())
+        g = torch.func.vmap(torch.func.grad(loss))(ps, u0s)
+        for i in (0, 7):
+            g_worst = max(g_worst, _rel(g[i], torch.func.grad(loss)(ps[i], u0s[i])))
+    _sync()
+    _check(worst <= 1e-12 and g_worst <= 1e-10,
+           f"[lanes a] 8 LV lanes x 6 adjoints: per-lane counts equal the solo solves' "
+           f"(accepted {steps['NoAdjoint']}); states max rel {worst:.3e} (1e-12); vmap(grad) "
+           f"vs solo max rel {g_worst:.3e} (1e-10); {time.perf_counter() - t0:.1f} s")
+
+    # (b) 8 Fisher-KPP initial conditions through kernel A's rows
+    ts_fk, ys_fk = fk.generate_data(device=device)
+    rhs, params = fk.make_model(torch.Generator().manual_seed(0), "mlp", device=device)
+    scale = torch.linspace(0.6, 1.3, 8, device=device)[:, None]
+    u0s_fk = ys_fk[0] * scale
+
+    def fk_solve(rhs_, p, u0, ts_):
+        sol = ude.solve(ude.ODEProblem(rhs_, u0, (0.0, fk.T_END), p), ude.Tsit5(), saveat=ts_,
+                        rtol=1e-4, atol=1e-6, adjoint=ude.NoAdjoint())
+        return sol.ys, sol.num_accepted, sol.num_rejected
+
+    rows = Counter()
+    launch, a_before = stencil._launch, stencil.launches
+
+    def spy(u, *args, **kw):
+        rows[1 if u.ndim == 1 else u.shape[0]] += 1
+        return launch(u, *args, **kw)
+
+    stencil._launch = spy
+    try:
+        t0 = time.perf_counter()
+        ys, n_acc, n_rej = torch.func.vmap(lambda u0: fk_solve(rhs, params, u0, ts_fk))(u0s_fk)
+        _sync()
+        t_vmap, a_vmap = time.perf_counter() - t0, stencil.launches - a_before
+        rows_vmap = dict(rows)
+        worst, same = 0.0, 0
+        for i in range(8):
+            s_ys, s_acc, s_rej = fk_solve(rhs, params, u0s_fk[i], ts_fk)
+            same += (int(s_acc), int(s_rej)) == (int(n_acc[i]), int(n_rej[i]))
+            worst = max(worst, _rel(ys[i], s_ys))
+    finally:
+        stencil._launch = launch
+    rhs_c, params_c = fk.make_model(torch.Generator().manual_seed(0), "mlp")
+    ys_c = torch.func.vmap(lambda u0: fk_solve(rhs_c, params_c, u0, ts_fk.cpu())[0])(
+        u0s_fk.cpu())
+    plain = _rel(ys.cpu(), ys_c)
+    _check(set(rows_vmap) == {8} and a_vmap > 0 and worst <= 1e-3 and plain <= 1e-3,
+           f"[lanes b] 8 Fisher-KPP lanes in one vmapped solve: kernel A {a_vmap} launches, "
+           f"rows {rows_vmap}; accepted {n_acc.tolist()}, {same} of 8 lanes with the solo "
+           f"solve's counts; states vs solo max rel {worst:.3e} (1e-3), vs the plain RHS on "
+           f"the CPU {plain:.3e} (1e-3); {t_vmap:.2f} s")
+
+    # (c) the Hudson Bay shooting gradient, float32 and float64
+    net = hb.make_net()
+    rhs_hb = hb.make_rhs(net)
+    walls, grads = {}, {}
+    for dt in (torch.float32, f64):
+        t_hb, Xn_hb, _ = hb.load_data(dt, device)
+        flat, unravel = ravel_pytree(hb.init_params(net, hb.SEEDS[0], dt, device))
+        loss = hb.shooting_loss(rhs_hb, t_hb, Xn_hb)
+
+        def grad():
+            x = flat.clone().requires_grad_(True)
+            return torch.autograd.grad(loss(unravel(x)), x)[0]
+
+        grads[dt] = grad()
+        runs = []
+        for _ in range(3):
+            _sync()
+            t0 = time.perf_counter()
+            grad()
+            _sync()
+            runs.append(time.perf_counter() - t0)
+        walls[dt] = statistics.median(runs)
+
+    # the same loss as a Python loop over the 5 segment solves (float64)
+    idx, mask = ude.shooting_windows(Xn_hb.shape[0], hb.GROUP, device=device)
+
+    def looped(p):
+        preds, ok, err = [], [], []
+        for k in range(idx.shape[0]):
+            tw = t_hb[idx[k]]
+            sol = ude.solve(ude.ODEProblem(rhs_hb, Xn_hb[idx[k, 0]], (tw[0], tw[-1]), p),
+                            ude.Tsit5(), saveat=tw, rtol=1e-6, atol=1e-6,
+                            adjoint=ude.DiscreteAdjoint(), max_steps=256)
+            preds.append(sol.ys)
+            ok.append(sol.success)
+            err.append(sol.error_sum)
+        preds, seg = torch.stack(preds), Xn_hb[idx]
+        m = mask.to(f64)
+        data = torch.sum(m[..., None] * (preds - seg) ** 2)
+        cont = torch.sum(m[:-1, -1, None] * (preds[:-1, -1] - seg[1:, 0]) ** 2)
+        failed = (~torch.stack(ok)).to(f64)
+        return (data + hb.CONTINUITY * cont + 1e4 * failed.sum()
+                + (failed * torch.stack(err)).sum() / 256 + hb.reg(p))
+
+    def loop_grad():
+        x = flat.clone().requires_grad_(True)
+        return torch.autograd.grad(looped(unravel(x)), x)[0]
+
+    _sync()
+    t0 = time.perf_counter()
+    g_loop = loop_grad()
+    _sync()
+    t_loop = time.perf_counter() - t0
+    r_loop = _rel(grads[f64], g_loop)
+    r_32 = _rel(grads[torch.float32].double(), grads[f64])
+    _check(r_loop <= 1e-10 and r_32 <= 1e-2 and bool(torch.isfinite(grads[torch.float32]).all()),
+           f"[lanes c] Hudson Bay shooting gradient ({flat.numel()} params, 5 vmapped "
+           f"segments): {walls[torch.float32]:.3f} s float32, {walls[f64]:.3f} s float64 "
+           f"(median of 3); the 5-solve loop {t_loop:.3f} s, equal to 1e-10 ({r_loop:.3e}); "
+           f"float32 vs float64 rel {r_32:.3e} (1e-2)")
+
+    # (d) two scenario-2 LM iterations (float32)
+    gen = torch.Generator().manual_seed(s2.SEED)
+    ts2, _, Xn2 = s2.make_data(gen, device=device)
+    rhs2, p2, _ = s2.make_model(gen, device=device)
+    res2 = s2.make_residuals(rhs2, *s2.segments(ts2, Xn2))
+    r0 = res2(p2)
+    l0 = float(torch.sum(r0 * r0))
+    lm, wall, lm_walls = _timed_lm(res2, p2, maxiters=2)
+    _check(math.isfinite(float(lm.loss)) and float(lm.loss) <= l0,
+           f"[lanes d] scenario-2 LM, 2 iterations (88 params, 5 vmapped segments under "
+           f"jacfwd): loss {l0:.6g} -> {float(lm.loss):.6g}; per iteration "
+           f"{', '.join(f'{w:.3f}' for w in lm_walls)} s on {card}")
+    log(f"[lanes] fused RHS kernel launches during phase 7: A {stencil.launches}, B "
+        f"{stencil.tangent_launches}, runtime-width {stencil.generic_launches}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if stencil.launches <= 0 or stencil.generic_launches:
+        raise AssertionError("phase 7 did not run kernel A at its compiled widths")
+
+
 def main():
     if not (ROOT / PKG).is_dir():
         print(f"chip_smoke.py: the package {PKG}/ is not beside this script", file=sys.stderr)
@@ -672,6 +871,7 @@ def main():
     sys.path.insert(0, str(ROOT))
     import torch
 
+    t_start = time.perf_counter()
     card = phase_device()
     device = torch.device("cuda", 0)
     import universal_differential_equations_torch  # noqa: F401  (sets TF32 off)
@@ -681,6 +881,8 @@ def main():
     launches, _, ts, ys = phase_main_path(device)
     phase_bench_task(device, card, ts, ys)
     phase_lv(device, card)
+    phase_lanes(device, card)
+    log(f"[total] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     # each kernel at the main path's shape: N = 26, and T = 465 directions
     k_ms, p_ms, b_ms, b_by = kern["a"][(PAPER, 26)]

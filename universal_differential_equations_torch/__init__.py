@@ -2,7 +2,7 @@
 
 A port of ``universal_differential_equations_tpu`` (JAX/XLA/Pallas on a TPU)
 to PyTorch and hand-written CUDA kernels on an NVIDIA H100.  The JAX package
-stays the reference the port is tested against.  This package holds two
+stays the reference the port is tested against.  This package holds three
 slices of the port:
 
 * A: the Fisher-KPP universal PDE trained by Levenberg-Marquardt, with
@@ -11,7 +11,12 @@ slices of the port:
   ``csrc/updet_rhs.cu``);
 * B: Lotka-Volterra scenario 1 — Vern7 truth, a UDE trained by ADAM then
   BFGS through the continuous adjoints, SINDy recovery, refit and
-  extrapolation (``examples/lv_scenario_1.py``).
+  extrapolation (``examples/lv_scenario_1.py``);
+* C1: ``torch.func.vmap`` over adaptive solves with every adjoint (lanes
+  share one loop; a finished lane passes through), multiple shooting
+  (``train/shooting.py``), simulation-judged SINDy selection
+  (``sindy/select.py``), LV scenario 2 (``examples/lv_scenario_2.py``) and
+  the Hudson Bay pipeline (``examples/hudson_bay.py``).
 
 Its directory layout and module names mirror the JAX package's.
 """
@@ -47,7 +52,9 @@ from .train import (
     fit,
     fit_bfgs,
     levenberg_marquardt,
+    multiple_shoot,
     reduce_on_plateau,
+    shooting_windows,
 )
 from .convert import params_from_jax
 
@@ -62,5 +69,6 @@ __all__ = [
     "levenberg_marquardt", "LMResult",
     "fit", "fit_bfgs", "FitResult", "reduce_on_plateau",
     "bfgs_minimize", "bfgs_minimize_lanes", "BFGSResult",
+    "multiple_shoot", "shooting_windows",
     "params_from_jax",
 ]

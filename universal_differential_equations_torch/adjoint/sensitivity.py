@@ -23,9 +23,11 @@ of ``args``.  Its backward takes vector-Jacobian products of ``f`` with
 ``torch.autograd.grad`` under ``torch.enable_grad()`` (``torch.func.vjp``
 under an outer ``torch.func.grad``/``vjp``, which both work through it).
 The continuous adjoints have no forward-mode rule (nor does JAX's
-``custom_vjp``): under ``torch.func.jacfwd`` name ``ForwardSensitivity``.
-Nor do they support ``torch.func.vmap``: each lane's adaptive loop takes its
-own number of steps.  Both raise ``NotImplementedError`` with that advice.
+``custom_vjp``): under ``torch.func.jacfwd`` they raise
+``NotImplementedError`` naming ``ForwardSensitivity``.  Under
+``torch.func.vmap`` the Function's generated rule runs its forward and
+backward passes over the lanes; the backward pass reads nothing from the
+device, so each lane's adjoint solves share one loop (``core/integrate.py``).
 
 Constraint: under the continuous adjoints, ``args`` must be a pytree of
 floating-point tensors (static configuration belongs in the RHS closure).
@@ -145,10 +147,15 @@ class _ContinuousAdjoint(AbstractAdjoint):
                 f"into the RHS closure, or use DiscreteAdjoint (which "
                 f"differentiates through the stepper and leaves non-float "
                 f"args alone).")
-        spec = _Spec(f, solver, controller, rtol, atol, dt0, max_steps, self,
-                     t0, t1, ts_save, tstops, build)
+        spec = _Spec(f, solver, controller, rtol, atol, dt0, max_steps, self, build)
+        # the span ends as tensors (float64 holds a Python float exactly), so
+        # vmap can batch them
+        t0, t1 = (t if isinstance(t, torch.Tensor)
+                  else torch.as_tensor(t, dtype=torch.float64, device=y0.device)
+                  for t in (t0, t1))
         (ys, y_final, buf_t, buf_y, buf_f, num_points, direction, t_final,
-         success, n_acc, n_rej, nfe) = _ContinuousSolve.apply(spec, y0, *leaves)
+         success, n_acc, n_rej, nfe) = _ContinuousSolve.apply(
+            spec, t0, t1, ts_save, tstops, y0, *leaves)
         dense = DenseInterpolation(buf_t, buf_y, buf_f, num_points, direction,
                                    nodes=getattr(solver, "dense_nodes", 2))
         return ys, IntegrateResult(dense, t_final, y_final, success, n_acc, n_rej, nfe)
@@ -201,34 +208,33 @@ class _Spec:
     dt0: Any
     max_steps: int
     cfg: _ContinuousAdjoint
-    t0: Any
-    t1: Any
-    ts_save: torch.Tensor
-    tstops: Optional[torch.Tensor]
     build: Callable  # leaves -> args pytree
 
 
 class _ContinuousSolve(torch.autograd.Function):
-    """Outputs ``(ys, y_final, buf_t, buf_y, buf_f, num_points, direction,
-    t_final, success, n_acc, n_rej, nfe)``; only ``ys`` and ``y_final`` are
+    """Inputs ``(spec, t0, t1, ts_save, tstops, y0, *leaves)``; outputs
+    ``(ys, y_final, buf_t, buf_y, buf_f, num_points, direction, t_final,
+    success, n_acc, n_rej, nfe)``.  Only ``ys`` and ``y_final`` are
     differentiable, with respect to ``y0`` and the leaves of ``args``.
 
-    Written in the ``setup_context`` style, so ``torch.func.grad`` and
-    ``torch.func.vjp`` work through it.  ``torch.func.vmap`` and forward mode
-    raise a named error: the adaptive loop's step count depends on the data,
-    so lanes cannot share one eager loop.
+    Written in the ``setup_context`` style, so ``torch.func.grad``,
+    ``torch.func.vjp`` and ``torch.func.vmap`` (a generated rule: forward and
+    backward are vmap-safe) work through it.  Forward mode raises a named
+    error, as JAX's ``custom_vjp`` has no JVP either.
     """
 
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(spec, y0, *leaves):
+    def forward(spec, t0, t1, ts_save, tstops, y0, *leaves):
         res = integrate_while(
-            spec.f, y0, spec.t0, spec.t1, spec.build(list(leaves)), spec.solver,
+            spec.f, y0, t0, t1, spec.build(list(leaves)), spec.solver,
             spec.rtol, spec.atol, spec.dt0, spec.max_steps,
             PIController() if spec.controller is None else spec.controller,
-            spec.tstops,
+            tstops,
         )
         d = res.dense
-        ys = d.evaluate(spec.ts_save)
+        ys = d.evaluate(ts_save)
         # a zero-length solve hands y0 back unchanged: return a copy, so no
         # output of this function is one of its inputs
         y_final = res.y_final.clone() if res.y_final is y0 else res.y_final
@@ -237,20 +243,13 @@ class _ContinuousSolve(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        spec, y0, *leaves = inputs
+        spec, t0, t1, ts_save, _, y0, *leaves = inputs
         ys, _, buf_t, buf_y, buf_f, num_points, direction, _, success = output[:9]
         ctx.mark_non_differentiable(*output[2:])
         ctx.set_materialize_grads(False)
         ctx.spec = spec
-        ctx.save_for_backward(y0, buf_t, buf_y, buf_f, num_points, direction,
-                              ys, success, *leaves)
-
-    @staticmethod
-    def vmap(info, in_dims, spec, y0, *leaves):
-        raise NotImplementedError(
-            f"{type(spec.cfg).__name__} does not support torch.func.vmap: the "
-            f"adaptive loop's step count depends on each lane's data.  Loop "
-            f"over the lanes, or batch them through integrate_fixed.")
+        ctx.save_for_backward(t0, t1, ts_save, y0, buf_t, buf_y, buf_f, num_points,
+                              direction, ys, success, *leaves)
 
     @staticmethod
     def jvp(ctx, *tangents):
@@ -261,14 +260,14 @@ class _ContinuousSolve(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_ys, g_yfin, *_):
-        y0, buf_t, buf_y, buf_f, num_points, direction, ys_save, success, *leaves = (
-            ctx.saved_tensors)
+        (t0, t1, ts_save, y0, buf_t, buf_y, buf_f, num_points, direction, ys_save,
+         success, *leaves) = ctx.saved_tensors
         g_ys = torch.zeros_like(ys_save) if g_ys is None else g_ys
         g_yfin = torch.zeros_like(y0) if g_yfin is None else g_yfin
-        y0_bar, leaf_bars = _backward(ctx.spec, y0, leaves, buf_t, buf_y, buf_f,
-                                      num_points, direction, ys_save, success,
-                                      g_ys, g_yfin)
-        return (None, y0_bar, *leaf_bars)
+        y0_bar, leaf_bars = _backward(ctx.spec, t0, t1, ts_save, y0, leaves, buf_t,
+                                      buf_y, buf_f, num_points, direction, ys_save,
+                                      success, g_ys, g_yfin)
+        return (None, None, None, None, None, y0_bar, *leaf_bars)
 
 
 def _vjp(f, t, y, leaves, build, cot, wrt_y=True, wrt_args=True):
@@ -306,9 +305,12 @@ def _vjp(f, t, y, leaves, build, cot, wrt_y=True, wrt_args=True):
     return out, y_bar, a_bar
 
 
-def _backward(spec, y0, leaves, buf_t, buf_y, buf_f, num_points, direction,
-              ys_save, success, g_ys, g_yfin):
-    """The adjoint pass: ``(y0_bar, [leaf cotangents])``."""
+def _backward(spec, t0, t1, ts_save, y0, leaves, buf_t, buf_y, buf_f, num_points,
+              direction, ys_save, success, g_ys, g_yfin):
+    """The adjoint pass: ``(y0_bar, [leaf cotangents])``.
+
+    It reads nothing from the device, so it runs unchanged under ``vmap``.
+    """
     cfg, f, solver, build = spec.cfg, spec.f, spec.solver, spec.build
     sizes = [leaf.numel() for leaf in leaves]
 
@@ -316,13 +318,13 @@ def _backward(spec, y0, leaves, buf_t, buf_y, buf_f, num_points, direction,
         return [p.reshape(leaf.shape).to(leaf.dtype)
                 for p, leaf in zip(torch.split(flat, sizes), leaves)]
 
-    # A failed or NaN-poisoned forward never reaches the backward integrators
-    # (on the TPU, adaptive loops fed NaN dynamics faulted the runtime): the
-    # gradient is NaN-poisoned as for a failed backward segment.
-    fwd_ok = bool(success & torch.isfinite(g_yfin).all() & torch.isfinite(g_ys).all())
-    if not fwd_ok:
-        nan = lambda x: torch.full_like(x, float("nan"))  # noqa: E731
-        return nan(y0), [nan(leaf) for leaf in leaves]
+    # A failed or NaN-poisoned forward gives a NaN gradient, as a failed
+    # backward segment does.  No value is read back to decide: the backward
+    # solves still run, on zero cotangents (a few growing steps each, where
+    # the real ones could be stiff past a blow-up), and the result is poisoned
+    ok = success & torch.isfinite(g_yfin).all() & torch.isfinite(g_ys).all()
+    g_ys = torch.where(ok, g_ys, torch.zeros_like(g_ys))
+    g_yfin = torch.where(ok, g_yfin, torch.zeros_like(g_yfin))
 
     nodes = cfg.interp_nodes
     if nodes is None:
@@ -333,11 +335,9 @@ def _backward(spec, y0, leaves, buf_t, buf_y, buf_f, num_points, direction,
     a_rtol = spec.rtol if cfg.rtol is None else cfg.rtol
     a_atol = spec.atol if cfg.atol is None else cfg.atol
     ctrl = PIController() if spec.controller is None else spec.controller
-    # segment ends on the host: one read, and zero-length segments (a save
-    # point on t0 or t1) are skipped — their solve returns its start unchanged
-    ts_host = spec.ts_save.tolist()
-    t0, t1 = float(spec.t0), float(spec.t1)
-    n_seg = len(ts_host)
+    # a zero-length segment (a save point on t0 or t1) is done at its start:
+    # its solve returns its start unchanged
+    n_seg = ts_save.shape[0]
 
     def solve_back(rhs, z, t_hi, t_lo, err_w=None):
         return integrate_while(rhs, z, t_hi, t_lo, None, solver, a_rtol, a_atol,
@@ -369,15 +369,14 @@ def _backward(spec, y0, leaves, buf_t, buf_y, buf_f, num_points, direction,
                 total = panel if total is None else total + panel
             return total
 
-        z, mu, ok = g_yfin, torch.zeros(n_p, dtype=y0.dtype, device=y0.device), True
+        z, mu = g_yfin, torch.zeros(n_p, dtype=y0.dtype, device=y0.device)
         t_hi = t1
         for i in range(n_seg - 1, -2, -1):
-            t_lo = ts_host[i] if i >= 0 else t0
-            if t_lo != t_hi:
-                res = solve_back(adj_rhs, z, t_hi, t_lo)
-                if n_p:
-                    mu = mu + seg_mu(res.dense, t_lo, t_hi)
-                z, ok = res.y_final, res.success & ok
+            t_lo = ts_save[i] if i >= 0 else t0
+            res = solve_back(adj_rhs, z, t_hi, t_lo)
+            if n_p:
+                mu = mu + seg_mu(res.dense, t_lo, t_hi)
+            z, ok = res.y_final, res.success & ok
             if i >= 0:
                 z = z + g_ys[i]
             t_hi = t_lo
@@ -402,7 +401,7 @@ def _backward(spec, y0, leaves, buf_t, buf_y, buf_f, num_points, direction,
                                           z[dim:2 * dim])
                 return torch.cat([fval, -y_bar, -a_bar])
 
-            y_final = buf_y[torch.clamp(num_points - 1, 0, buf_y.shape[0] - 1)]
+            y_final = buf_y[torch.clamp(num_points - 1, 0, buf_y.shape[0] - 1).reshape(1)][0]
             z = torch.cat([y_final, g_yfin, g_yfin.new_zeros(n_p)])
 
             def at_boundary(z, i):
@@ -416,12 +415,11 @@ def _backward(spec, y0, leaves, buf_t, buf_y, buf_f, num_points, direction,
             n_ctrl = dim if cfg.kind == "interp" else 2 * dim
             err_w = torch.cat([z.new_ones(n_ctrl), z.new_zeros(n_p)])
 
-        ok, t_hi = True, t1
+        t_hi = t1
         for i in range(n_seg - 1, -2, -1):
-            t_lo = ts_host[i] if i >= 0 else t0
-            if t_lo != t_hi:
-                res = solve_back(adj_rhs, z, t_hi, t_lo, err_w)
-                z, ok = res.y_final, res.success & ok
+            t_lo = ts_save[i] if i >= 0 else t0
+            res = solve_back(adj_rhs, z, t_hi, t_lo, err_w)
+            z, ok = res.y_final, res.success & ok
             if i >= 0:
                 z = at_boundary(z, i)
             t_hi = t_lo
@@ -431,7 +429,5 @@ def _backward(spec, y0, leaves, buf_t, buf_y, buf_f, num_points, direction,
 
     # A failed backward segment (segment_max_steps exhausted, dt underflow)
     # would return a silently wrong gradient: NaN-poison it instead.
-    if not isinstance(ok, bool):
-        poison = lambda x: torch.where(ok, x, torch.full_like(x, float("nan")))  # noqa: E731
-        y0_bar, mu = poison(y0_bar), poison(mu)
-    return y0_bar, unravel(mu)
+    poison = lambda x: torch.where(ok, x, torch.full_like(x, float("nan")))  # noqa: E731
+    return poison(y0_bar), unravel(poison(mu))

@@ -76,12 +76,12 @@ def solve(
       max_steps: step-attempt budget.  Defaults to the adjoint's preference —
         4096 for the while-loop paths, 512 for the discrete adjoint.
       adjoint: sensitivity algorithm; defaults to ``InterpolatingAdjoint()``.
-        It works under ``torch.autograd``, ``torch.func.grad`` and
-        ``torch.func.vjp``.  Under ``torch.func.jacfwd`` use
-        ``ForwardSensitivity``: the continuous adjoints have no forward-mode
-        rule.  Under ``torch.func.vmap`` they raise ``NotImplementedError``;
-        ``DiscreteAdjoint`` is no better there, as each lane's adaptive loop
-        takes its own number of steps.
+        Every adjoint works under ``torch.autograd``, ``torch.func.grad``,
+        ``torch.func.vjp`` and ``torch.func.vmap`` (lanes may differ in
+        ``u0``, ``args``, ``tspan`` and ``saveat``; each lane takes its solo
+        solve's steps, and a finished lane waits for the others).  Under
+        ``torch.func.jacfwd`` use ``ForwardSensitivity``: the continuous
+        adjoints have no forward-mode rule.
       dense: attach continuous output so ``sol(t)`` / ``sol(t, nu=1)`` work.
       controller: step-size controller.
       step_to_saveat: force accepted steps to land exactly on the ``saveat``
@@ -112,7 +112,8 @@ def solve(
         return ravel_pytree(user_f(t, unravel(y), args))[0]
 
     if saveat is None:
-        ts = torch.tensor([float(t0), float(t1)], dtype=dtype, device=device)
+        # tensor ops, not float(): under vmap the span ends may be batched
+        ts = torch.stack([torch.as_tensor(t, dtype=dtype, device=device) for t in (t0, t1)])
     else:
         ts = torch.as_tensor(saveat, dtype=dtype, device=device)
         if ts.ndim != 1:

@@ -23,6 +23,15 @@ result as running all ``max_steps`` attempts: after ``done`` the JAX scan
 only appends ``+inf`` time slots, which sort past ``num_points`` and are
 never read by the dense output.
 
+Under ``torch.func.vmap`` the lanes share the loop: the check reduces
+``done`` over every lane (``_AllDone``, whose ``vmap`` rule returns one
+unbatched flag), and a lane that has finished passes through the remaining
+attempts unchanged — its counters, dense-output slots (``+inf``) and error
+sum are those of its solo solve, as in ``jax.vmap`` of the JAX drivers.
+Where the loop's state carries no lane dimension (outside ``vmap``, or
+under ``jacfwd``, whose ``vmap`` batches only tangents) no lane is ever
+idle: the masking is skipped and the check is a plain read.
+
 Step control reads detached primal values only (the counterpart of JAX's
 ``stop_gradient``), so ``torch.func.jacfwd`` and ``torch.func.jvp`` can carry
 the loop: every Python branch is on a tensor that no transform has wrapped.
@@ -38,6 +47,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch._C import _functorch
 from torch.utils.checkpoint import checkpoint as _checkpoint
 
 from .controller import PIController, hairer_norm, initial_step_size
@@ -70,6 +80,39 @@ class IntegrateResult(NamedTuple):
     # Σ over step attempts of the tolerance-normalized local error norm,
     # kept differentiable (arXiv:2105.03918); None on the while-loop path.
     err_sum: torch.Tensor = None
+
+
+class _AllDone(torch.autograd.Function):
+    """``done.all()``; under ``torch.func.vmap`` the reduction runs over every
+    lane and the flag comes back unbatched, so the host can read it."""
+
+    @staticmethod
+    def forward(done):
+        return done.all()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def vmap(info, in_dims, done):
+        return done.all(), None
+
+
+def _has_lanes(*tensors) -> bool:
+    """Whether any of ``tensors`` is batched by a ``vmap`` level (looking
+    through the wrappers of the ``grad``/``jvp`` levels above it)."""
+    for x in tensors:
+        while x is not None:
+            if _functorch.is_batchedtensor(x):
+                return True
+            x = _functorch.get_unwrapped(x) if _functorch.is_functorch_wrapped_tensor(x) else None
+    return False
+
+
+def _all_done(done, lanes: bool) -> bool:
+    """Whether every lane of ``done`` is set: one read from the device."""
+    return bool(_AllDone.apply(done) if lanes else done)
 
 
 def _setup(f, y0, t0, t1, args, solver, rtol, atol, dt0):
@@ -127,20 +170,25 @@ def _setup(f, y0, t0, t1, args, solver, rtol, atol, dt0):
 
 
 def _attempt(f_int, solver, controller, rtol, atol, tau1, state, args, dtype,
-             tstops=None, track_err=False, err_weights=None):
+             tstops=None, track_err=False, err_weights=None, passthrough=False):
     """One controller-supervised step attempt.
 
     Returns ``(state', accept, t_new, y1, f1, err_diff)``; ``err_diff`` is
     None unless ``track_err``.  ``tstops`` (internal time, ascending) forces
     accepted steps to land exactly on those points.  ``err_weights`` makes
-    the controller's error norm a seminorm (``hairer_norm``).
+    the controller's error norm a seminorm (``hairer_norm``).  With
+    ``passthrough`` a state that is already ``done`` comes back unchanged,
+    with ``accept`` false, ``y1``/``f1`` its own and ``err_diff`` 0 (the JAX
+    scan's ``lax.cond(state.done, passthrough, stepped)``).
     """
     if tstops is None:
         next_stop = tau1
     else:
         n_stop = tstops.shape[0]
-        idx = torch.searchsorted(tstops, state.t.reshape(1), right=True)[0]
-        next_ts = tstops[torch.clamp(idx, 0, n_stop - 1)]
+        # 1-element indices (a 0-d one is read back to the host under vmap of grad)
+        idx = torch.searchsorted(tstops, state.t.reshape(1), right=True)
+        next_ts = tstops[torch.clamp(idx, 0, n_stop - 1)][0]
+        idx = idx[0]
         next_stop = torch.where(idx >= n_stop, tau1, torch.minimum(next_ts, tau1))
     dt_cap = next_stop - state.t
     clamped = state.dt >= dt_cap
@@ -182,6 +230,14 @@ def _attempt(f_int, solver, controller, rtol, atol, tau1, state, args, dtype,
         done=state.done | reached | underflow,
         failed=state.failed | underflow,
     )
+    if passthrough:
+        idle = state.done
+        new = _State(*(torch.where(idle, old, upd) for old, upd in zip(state, new)))
+        accept = accept & ~idle
+        y1 = torch.where(idle, state.y, y1)
+        f1 = torch.where(idle, state.f, f1)
+        if track_err:
+            err_diff = torch.where(idle, torch.zeros_like(err_diff), err_diff)
     return new, accept, t_new, y1, f1, err_diff
 
 
@@ -195,11 +251,15 @@ def _loop(f, y0, t0, t1, args, solver, rtol, atol, dt0, max_steps, controller,
             direction * torch.as_tensor(tstops, dtype=dtype, device=tau0.device).detach()
         ).values
     inf = torch.full((), float("inf"), dtype=dtype, device=tau0.device)
+    # with lanes (the initial step and RHS see every batched input) a lane
+    # may finish before the others: it then passes through
+    passthrough = _has_lanes(state.f, state.dt, state.done, tstops)
 
     def attempt(*fields):
         new, accept, t_new, y1, f1, err_diff = _attempt(
             f_int, solver, controller, rtol, atol, tau1, _State(*fields), args,
             dtype, tstops, track_err=track_err, err_weights=err_weights,
+            passthrough=passthrough,
         )
         return (*new, torch.where(accept, t_new, inf), y1, f1, err_diff)
 
@@ -211,7 +271,7 @@ def _loop(f, y0, t0, t1, args, solver, rtol, atol, dt0, max_steps, controller,
     # stages kept for the backward pass
     checkpoint = checkpoint and torch._C._functorch.peek_interpreter_stack() is None
     for _ in range(max_steps):
-        if bool(state.done):
+        if _all_done(state.done, passthrough):
             break
         if checkpoint and torch.is_grad_enabled():
             outs = _checkpoint(attempt, *state, use_reentrant=False)

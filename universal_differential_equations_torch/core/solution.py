@@ -120,7 +120,9 @@ class DenseInterpolation:
         # Clamp to the covered range: a truncated solve holds its last valid
         # state instead of extrapolating the local polynomial.
         cap = self.ts.shape[0]
-        last = self.ts[torch.clamp(self.num_points - 1, 0, cap - 1)]
+        # a 1-element index: under vmap of grad a 0-d index tensor is read
+        # back as a Python int, which vmap refuses
+        last = self.ts[torch.clamp(self.num_points - 1, 0, cap - 1).reshape(1)]
         t = torch.minimum(torch.maximum(t, self.ts[0]), last)
         i = self._interval(t)
         if self.nodes <= 2:

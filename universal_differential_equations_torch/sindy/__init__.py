@@ -16,3 +16,4 @@ from .solve import (
     SINDyResult,
     sindy,
 )
+from .select import best_per_support, cv_ladder, select_by_simulation

@@ -81,17 +81,20 @@ class Basis:
             object.__setattr__(
                 self, "var_names", tuple(f"u{i+1}" for i in range(self.n_vars))
             )
-        # the polynomial exponent table, one copy per device (theta runs at
-        # every RHS evaluation of a recovered model)
-        object.__setattr__(self, "_exponents", {})
+        # index and coefficient tables, one copy per device and dtype (theta
+        # runs at every RHS evaluation of a recovered model: no host copies)
+        object.__setattr__(self, "_tables", {})
+
+    def _table(self, name, device, build, dtype=None):
+        key = (name, device, dtype)
+        table = self._tables.get(key)
+        if table is None:
+            table = self._tables[key] = torch.as_tensor(build(), dtype=dtype, device=device)
+        return table
 
     def _exponent_table(self, device):
-        table = self._exponents.get(device)
-        if table is None:
-            rows = [t.exponents for t in self.terms if t.kind == "poly"]
-            table = torch.as_tensor(np.array(rows, dtype=np.int64), device=device)
-            self._exponents[device] = table
-        return table
+        return self._table("exponents", device, lambda: np.array(
+            [t.exponents for t in self.terms if t.kind == "poly"], dtype=np.int64))
 
     def __len__(self):
         return len(self.terms)
@@ -110,28 +113,37 @@ class Basis:
         single = X.ndim == 1
         if single:
             X = X[None, :]
-        poly = [t for t in self.terms if t.kind == "poly"]
+        # one block per kind (it runs at every RHS evaluation of a recovered
+        # model, so few ops), then the columns back into the terms' order
+        blocks, where = [], []
+        poly = [i for i, t in enumerate(self.terms) if t.kind == "poly"]
         if poly:
             E = self._exponent_table(X.device)  # (m, n)
             pows = [torch.ones_like(X)]
-            for _ in range(max(max(t.exponents) for t in poly)):
+            for _ in range(max(max(self.terms[i].exponents) for i in poly)):
                 pows.append(pows[-1] * X)
             table = torch.stack(pows, dim=0).permute(2, 0, 1)  # (n, D+1, N)
             var_idx = torch.arange(E.shape[1], device=X.device)[None, :]
-            block = torch.prod(table[var_idx, E, :], dim=1).T  # (N, m)
-        cols = []
-        poly_i = 0
-        for t in self.terms:
-            if t.kind == "poly":
-                cols.append(block[:, poly_i])
-                poly_i += 1
-            elif t.kind == "sin":
-                cols.append(torch.sin(t.freq * X[:, t.var]))
-            elif t.kind == "cos":
-                cols.append(torch.cos(t.freq * X[:, t.var]))
-            else:
-                cols.append(torch.func.vmap(t.fn)(X))
-        out = torch.stack(cols, dim=-1)
+            blocks.append(torch.prod(table[var_idx, E, :], dim=1).T)  # (N, m)
+            where += poly
+        for kind, fn in (("sin", torch.sin), ("cos", torch.cos)):
+            trig = [i for i, t in enumerate(self.terms) if t.kind == kind]
+            if trig:
+                var = [self.terms[i].var for i in trig]
+                arg = X if var == list(range(X.shape[1])) else X[:, self._table(
+                    kind + "_var", X.device, lambda: np.array(var, dtype=np.int64))]
+                freq = [float(self.terms[i].freq) for i in trig]
+                if any(f != 1.0 for f in freq):
+                    arg = arg * self._table(kind + "_freq", X.device, lambda: freq, X.dtype)
+                blocks.append(fn(arg))
+                where += trig
+        for i, t in enumerate(self.terms):
+            if t.kind not in ("poly", "sin", "cos"):
+                blocks.append(torch.func.vmap(t.fn)(X)[:, None])
+                where.append(i)
+        out = torch.cat(blocks, dim=-1) if len(blocks) > 1 else blocks[0]
+        if where != sorted(where):
+            out = out[:, self._table("order", X.device, lambda: np.argsort(where))]
         return out[0] if single else out
 
     def __call__(self, X):
