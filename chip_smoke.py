@@ -74,6 +74,30 @@ Phases, in order; any failure raises and the script exits non-zero:
        residuals, 5 vmapped ``ForwardSensitivity`` segments under
        ``jacfwd``, float32): the loss is finite and does not rise.
 
+8. Slice C2 and LV scenario 3 on the card (these paths run no hand-written
+   kernel; the kernels' counters are zeroed before and must read 0 after),
+   through the pipelines' own stages (``examples/seir_exposure.py``,
+   ``examples/lv_scenario_3.py``):
+   (a) the SEIR truth (Vern7, 1e-10/1e-12, steps on the save grid) in
+       float64, equal to the CPU's to 1e-9 relative;
+   (b) per variant, the training loss's gradient at full width (9,157 and
+       4,481 parameters, float32, rtol 1e-6): interpolating against discrete
+       adjoint within 1e-3 relative, with the median seconds of 3 calls;
+   (c) per variant, ``train_variant`` with 5 ADAM steps and 5 BFGS
+       iterations, with seconds per step and iteration: the loss is finite
+       and falls below the initial one for the neural ODE; for the exposure
+       UDE, whose first ADAM(0.01) steps overshoot, BFGS lowers ADAM's;
+   (d) the weak pair with the SEIR features (float64) equal to the CPU's to
+       1e-10 relative; the ideal-recovery SINDy selects the CPU's support;
+   (e) the UDE arm's ladder and refit judge (``refit_all``, 5 refit
+       iterations; the script's widths, float32): finite, timed; the ideal
+       model's day-60 extrapolation finishes;
+   (f) ``stability_selection``'s frequencies for one row mask and
+       ``two_stage_recovery`` equal the CPU's to 1e-12 (float64);
+   (g) scenario 3 in float32: 10 ADAM steps and 2 LM iterations leave a
+       finite, non-rising loss; SINDy on pairs from the true reaction
+       u(1−u) recovers it within 1e-3 on [0, 1].
+
 The line before the last is ``{"kernels": [...]}``, one entry per kernel with
 its bound on the card (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s float32); the
 last line is ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -864,6 +888,183 @@ def phase_lanes(device, card):
         raise AssertionError("phase 7 did not run kernel A at its compiled widths")
 
 
+def phase_seir_lv3(device, card):
+    """Phase 8: slice C2 and LV scenario 3 (see the module docstring)."""
+    import numpy as np
+    import torch
+    import universal_differential_equations_torch as ude
+    from universal_differential_equations_torch import sindy as sd
+    from universal_differential_equations_torch.examples import lv_scenario_3 as s3
+    from universal_differential_equations_torch.examples import seir_exposure as se
+    from universal_differential_equations_torch.flatten_util import ravel_pytree
+    from universal_differential_equations_torch.models import fisher_kpp as fk
+    from universal_differential_equations_torch.models import seir
+    from universal_differential_equations_torch.ops import stencil
+    from universal_differential_equations_torch.sindy.select import _selection_frequencies
+
+    f64, f32 = torch.float64, torch.float32
+    cpu = torch.device("cpu")
+    stencil.launches = stencil.tangent_launches = stencil.generic_launches = 0
+    t_phase = time.perf_counter()
+
+    # (a) the SEIR truth: Vern7 at 1e-10/1e-12 on the daily grid, float64
+    t0 = time.perf_counter()
+    ts64, X, data64 = se.truth(torch.Generator().manual_seed(se.SEEDS["noise"]), device=device)
+    _sync()
+    wall = time.perf_counter() - t0
+    _, X_c, data_c = se.truth(torch.Generator().manual_seed(se.SEEDS["noise"]))
+    r = _rel(X.cpu(), X_c)
+    _check(r <= 1e-9 and X.device == device,
+           f"[seir a] Vern7 truth {tuple(X.shape)} float64 on {X.device} in {wall:.3f} s; "
+           f"card vs cpu rel {r:.3e} (1e-9)")
+    ts, data = ts64.float(), data64.float()
+
+    # (b), (c) per variant: the training loss's gradient at full width, and
+    # train_variant's own ADAM and BFGS with budgets passed in
+    trained = {}
+    for name, make in (("neural_ode", seir.make_neural_ode),
+                       ("exposure_ude", seir.make_exposure_ude)):
+        rhs, p0, net = make(torch.Generator().manual_seed(se.SEEDS[name]), device=device)
+        flat, unravel = ravel_pytree(p0)
+
+        def grad(adjoint):
+            x = flat.clone().requires_grad_(True)
+            loss = se.make_loss(rhs, ts, data, adjoint=adjoint)(unravel(x))
+            return loss.detach(), torch.autograd.grad(loss, x)[0]
+
+        runs = []
+        for _ in range(3):
+            _sync()
+            t0 = time.perf_counter()
+            l_i, g_i = grad(ude.InterpolatingAdjoint())
+            _sync()
+            runs.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        l_d, g_d = grad(ude.DiscreteAdjoint(default_max_steps=4096))
+        _sync()
+        t_d = time.perf_counter() - t0
+        rg = _rel(g_i, g_d)
+        _check(bool(torch.isfinite(g_i).all()) and rg <= 1e-3,
+               f"[seir b] {name} ({flat.numel()} params, float32, rtol 1e-6): loss "
+               f"{float(l_i):.6g}, interpolating vs discrete adjoint gradient rel {rg:.3e} "
+               f"(1e-3); seconds per gradient, median of 3: {statistics.median(runs):.3f} "
+               f"(discrete {t_d:.3f}) on {card}")
+        l0 = float(l_i)
+        t0 = time.perf_counter()
+        p_tr, info = se.train_variant(name, rhs, p0, ts, data, True, adam_steps=5,
+                                      bfgs_iters=5, rounds=1)
+        _sync()
+        wall = time.perf_counter() - t0
+        # the neural ODE's loss falls; the exposure UDE's first ADAM(0.01) steps
+        # overshoot from its small initial loss (0.0275 -> 0.153 on the card),
+        # so there BFGS must lower the loss ADAM left
+        falls = info["bfgs_loss"] < (l0 if name == "neural_ode" else info["adam_loss"])
+        _check(math.isfinite(info["bfgs_loss"]) and falls,
+               f"[seir c] {name}: train_variant 5 ADAM steps {l0:.6g} -> "
+               f"{info['adam_loss']:.6g} in {info['adam_s']:.2f} s "
+               f"({info['adam_s'] / 5:.3f} s per step); BFGS {info['bfgs_iterations']} "
+               f"iterations, {info['bfgs_evals']} evaluations -> {info['bfgs_loss']:.6g} in "
+               f"{info['bfgs_s']:.2f} s ({info['bfgs_s'] / max(info['bfgs_iterations'], 1):.3f} s "
+               f"per iteration); {wall:.1f} s")
+        trained[name] = (rhs, p_tr, net)
+
+    # (d) the weak pair with the SEIR features, and the ideal recovery
+    basis = se.scenario_basis()
+    t0 = time.perf_counter()
+    G, y_w = se.weak_rows(ts64, data64, basis)
+    _sync()
+    t_w = time.perf_counter() - t0
+    G_c, y_c = se.weak_rows(ts64.cpu(), data_c, basis)
+    rw = max(_rel(G.cpu(), G_c), _rel(y_w.cpu(), y_c))
+    feats, L_true = se.exposure_features(data64), 1e5 * seir.true_exposure(data64)
+    t0 = time.perf_counter()
+    ideal = se.ideal_recovery(feats, L_true, basis)
+    t_i = time.perf_counter() - t0
+    ideal_c = se.ideal_recovery(feats.cpu(), L_true.cpu(), basis)
+    _check(rw <= 1e-10 and np.array_equal(ideal.active, ideal_c.active),
+           f"[seir d] weak pair {tuple(G.shape)} in {t_w:.3f} s, card vs cpu rel {rw:.3e} "
+           f"(1e-10); ideal recovery in {t_i:.2f} s, the same support as on the cpu: "
+           f"{ideal.equations('dz')[0][:90]}")
+
+    # (e) the UDE arm's ladder and refit judge at the script's widths with 5
+    # refit iterations, on the exposure UDE of (c); then a day-60 extrapolation
+    rhs_u, p_u, net_u = trained["exposure_ude"]
+    rc = se.reconstruct(rhs_u, net_u, p_u, ts, data)
+    t0 = time.perf_counter()
+    lad = se.ladder(basis.theta(rc["feats_h"][1:]), rc["L_hat"][1:],
+                    se.small_supports(len(basis)))
+    C_sel, refit_loss, k_sel = se.judge(lad, basis, ts, data, refit_iters=5)
+    _sync()
+    t_j = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, ok60, err60 = se.extrapolate(ideal, se.truth60(device=device))
+    _sync()
+    t_x = time.perf_counter() - t0
+    _check(bool(torch.isfinite(C_sel).all()) and math.isfinite(float(refit_loss)) and ok60,
+           f"[seir e] UDE-arm ladder ({int(lad[1].sum())} of {lad[0].shape[0]} rungs) and "
+           f"refit judge (refit_all, 5 BFGS iterations, {(len(ts) - 1) * se.SUB} fixed Tsit5 "
+           f"steps) in {t_j:.2f} s: k = {int(k_sel)}, refit loss {float(refit_loss):.4g}; the "
+           f"ideal model's day-60 extrapolation finished (rel err on E,I,R {err60:.3e}) in "
+           f"{t_x:.2f} s")
+
+    # (f) stability selection and the two-stage recovery, card against cpu
+    rng = np.random.default_rng(3)
+    th = rng.standard_normal((60, 10))
+    yy = 1.5 * th[:, 2] - 0.8 * th[:, 7] + 0.05 * rng.standard_normal(60)
+    keep = torch.rand((64, 60), generator=torch.Generator().manual_seed(7)) < 0.7
+    opt = sd.STLSQ(tuple(10.0 ** e for e in np.arange(-3.0, 1.0, 0.25)))
+    t0 = time.perf_counter()
+    freq = _selection_frequencies(torch.tensor(th, device=device), torch.tensor(yy, device=device),
+                                  opt, keep, 4, True)
+    _sync()
+    t_s = time.perf_counter() - t0
+    freq_c = _selection_frequencies(torch.tensor(th), torch.tensor(yy), opt, keep, 4, True)
+    Xl = rng.uniform(0.2, 3.0, (200, 2))
+    Yl = np.stack([1.5 * Xl[:, 0] - 0.7 * Xl[:, 0] * Xl[:, 1],
+                   -2.0 * Xl[:, 1] + 0.4 * Xl[:, 0] * Xl[:, 1]], 1)
+    Yl = Yl + 1e-3 * rng.standard_normal(Yl.shape)
+    lv_basis = sd.polynomial_basis(2, 5) + sd.sin_basis(2)
+    lams = tuple(10.0 ** e for e in np.arange(-7.0, 7.0, 0.1))
+    t0 = time.perf_counter()
+    C2 = sd.two_stage_recovery(lv_basis.theta(torch.tensor(Xl, device=device)),
+                               torch.tensor(Yl, device=device), lams)
+    _sync()
+    t_2 = time.perf_counter() - t0
+    C2_c = sd.two_stage_recovery(lv_basis.theta(torch.tensor(Xl)), torch.tensor(Yl), lams)
+    r2 = _rel(C2.cpu(), C2_c)
+    _check(_rel(freq.cpu(), freq_c) <= 1e-12 and r2 <= 1e-12
+           and torch.equal(C2.cpu() != 0, C2_c != 0),
+           f"[seir f] stability selection (64 subsets) in {t_s:.2f} s, frequencies "
+           f"{freq.cpu().numpy().round(3).tolist()} equal the cpu's; two-stage recovery in "
+           f"{t_2:.2f} s, card vs cpu rel {r2:.3e} (1e-12), {int((C2 != 0).sum())} terms")
+
+    # (g) LV scenario 3 in float32: 10 ADAM steps and 2 LM iterations, and
+    # SINDy on pairs from the true reaction
+    ts3, data3 = fk.generate_data(dtype=f32, device=device)
+    rhs3, p3, _ = s3.make_model(torch.Generator().manual_seed(s3.SEED), device=device)
+    res3 = s3.make_residuals(rhs3, ts3, data3)
+    r0 = res3(p3)
+    l0 = float(torch.sum(r0 * r0))
+    t0 = time.perf_counter()
+    _, loss3, rounds3 = s3.train(res3, p3, True, rounds=1, adam_steps=10, lm_iters=2)
+    _sync()
+    t_3 = time.perf_counter() - t0
+    u = data3.reshape(-1, 1)
+    rec = s3.recover(u, u * (1 - u))
+    ferr = s3.functional_error(rec, device=device)
+    _check(math.isfinite(loss3) and rounds3[0][0] <= l0 and loss3 <= rounds3[0][0]
+           and ferr <= 1e-3,
+           f"[lv3 g] scenario 3 (float32, 80 params): 10 ADAM steps {l0:.6g} -> "
+           f"{rounds3[0][0]:.6g}, 2 LM iterations -> {loss3:.6g}, {t_3:.2f} s; SINDy on the "
+           f"true reaction: {rec.equations('dr')[0]}, max error on [0, 1] {ferr:.2e} (1e-3)")
+    launched = (stencil.launches, stencil.tangent_launches, stencil.generic_launches)
+    log(f"[seir] fused RHS kernel launches during phase 8: A {launched[0]}, B {launched[1]}, "
+        f"runtime-width {launched[2]} (this path runs no hand-written kernel); phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if any(launched):
+        raise AssertionError("phase 8 launched a fused RHS kernel; its paths reach none")
+
+
 def main():
     if not (ROOT / PKG).is_dir():
         print(f"chip_smoke.py: the package {PKG}/ is not beside this script", file=sys.stderr)
@@ -882,6 +1083,7 @@ def main():
     phase_bench_task(device, card, ts, ys)
     phase_lv(device, card)
     phase_lanes(device, card)
+    phase_seir_lv3(device, card)
     log(f"[total] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     # each kernel at the main path's shape: N = 26, and T = 465 directions

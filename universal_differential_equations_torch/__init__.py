@@ -2,7 +2,7 @@
 
 A port of ``universal_differential_equations_tpu`` (JAX/XLA/Pallas on a TPU)
 to PyTorch and hand-written CUDA kernels on an NVIDIA H100.  The JAX package
-stays the reference the port is tested against.  This package holds three
+stays the reference the port is tested against.  This package holds four
 slices of the port:
 
 * A: the Fisher-KPP universal PDE trained by Levenberg-Marquardt, with
@@ -16,7 +16,12 @@ slices of the port:
   share one loop; a finished lane passes through), multiple shooting
   (``train/shooting.py``), simulation-judged SINDy selection
   (``sindy/select.py``), LV scenario 2 (``examples/lv_scenario_2.py``) and
-  the Hudson Bay pipeline (``examples/hudson_bay.py``).
+  the Hudson Bay pipeline (``examples/hudson_bay.py``);
+* C2: the SEIR exposure case study (``models/seir.py``,
+  ``utils.rescale_problem``, ``examples/seir_exposure.py``), weak-form SINDy
+  (``sindy/weak.py``), stability selection and the SR3→STRRidge two-stage
+  recovery (``sindy/select.py``), and LV scenario 3, the universal PDE with
+  reaction recovery (``examples/lv_scenario_3.py``).
 
 Its directory layout and module names mirror the JAX package's.
 """

@@ -13,8 +13,9 @@ extrapolation to t = 50.
 Every stage runs on ``--device`` (default ``cuda``; it raises where there is
 no card — ``--device cpu`` must be asked for).  The JAX script moves its
 float64 BFGS and SINDy sweeps to the host CPU because its accelerator has no
-fast float64; the H100 has, so here they stay on the card.  Left out: the
-stability-selection readout (diagnostic only) and the plots.
+fast float64; the H100 has, so here they stay on the card.  The
+stability-selection readout draws its row subsamples from
+``torch.Generator(17)``, not ``jax.random``.  Left out: the plots.
 
 Without ``--quick`` the run must reach ``coef_err < 0.02`` and
 ``period_err < 0.1`` (``scenario_1.py:385``).  The last line of the output is
@@ -50,6 +51,22 @@ def _card(device):
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def stopwatch(device):
+    """``(walls, lap)``: ``lap(name)`` records the seconds since the last lap
+    (after the device's queue drains) under ``name`` and prints them."""
+    walls, clock = {}, [time.perf_counter()]
+
+    def lap(name):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        now = time.perf_counter()
+        walls[name] = now - clock[0]
+        clock[0] = now
+        print(f"[{name}] {walls[name]:.2f} s", flush=True)
+
+    return walls, lap
 
 
 def scenario_basis():
@@ -144,17 +161,7 @@ def main(quick=False, device="cuda"):
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
-    walls = {}
-    clock = [time.perf_counter()]
-
-    def lap(name):
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        now = time.perf_counter()
-        walls[name] = now - clock[0]
-        clock[0] = now
-        print(f"[{name}] {walls[name]:.2f} s", flush=True)
-
+    walls, lap = stopwatch(device)
     gen = torch.Generator().manual_seed(SEED)
 
     # -- data generation (scenario_1.jl:40-53): float64 at the reference's 1e-12
@@ -275,6 +282,21 @@ def main(quick=False, device="cuda"):
     print("recovered interactions:")
     for eq in res_sindy.equations():
         print("  " + eq)
+
+    # structure-uncertainty readout (diagnostic only, scenario_1.py:299-319):
+    # subsample selection frequencies over the same (Θ(X̂), ŷ) regression, in
+    # float64 like the port's other sweeps (the JAX script's is float32)
+    stab_gen = torch.Generator().manual_seed(17)
+    stab_lams = tuple(10.0 ** ee for ee in np.arange(-3.0, 2.0, 0.25))
+    for e in (0, 1):
+        freq = sd.stability_selection(theta_f, nn_out[:, e], sd.STLSQ(stab_lams), stab_gen,
+                                      n_subsets=64, frac=0.7, max_support=4).cpu().numpy()
+        act = np.nonzero(res_sindy.active[:, e])[0]
+        tops = np.argsort(-freq)[:3]
+        print(f"  eq{e + 1} subsample stability: selected "
+              + ", ".join(f"{basis.names[i]}={freq[i]:.2f}" for i in act)
+              + " | most stable library terms: "
+              + ", ".join(f"{basis.names[i]}={freq[i]:.2f}" for i in tops))
 
     # -- refit the recovered parameters on the data (scenario_1.jl:183-191)
     if res_sindy.parameters().size == 0:

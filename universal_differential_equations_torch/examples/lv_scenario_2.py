@@ -34,7 +34,7 @@ import torch
 
 import universal_differential_equations_torch as ude
 from universal_differential_equations_torch import sindy as sd
-from universal_differential_equations_torch.examples.lv_scenario_1 import _card
+from universal_differential_equations_torch.examples.lv_scenario_1 import _card, stopwatch
 from universal_differential_equations_torch.flatten_util import ravel_pytree
 from universal_differential_equations_torch.models import lotka_volterra as lv
 
@@ -130,17 +130,7 @@ def main(quick=False, device="cuda"):
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
-    walls = {}
-    clock = [time.perf_counter()]
-
-    def lap(name):
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        now = time.perf_counter()
-        walls[name] = now - clock[0]
-        clock[0] = now
-        print(f"[{name}] {walls[name]:.2f} s", flush=True)
-
+    walls, lap = stopwatch(device)
     gen = torch.Generator().manual_seed(SEED)
     ts, _, Xn = make_data(gen, device=device)
     seg_ts, seg_x, y_left, y_right = segments(ts, Xn)

@@ -16,4 +16,11 @@ from .solve import (
     SINDyResult,
     sindy,
 )
-from .select import best_per_support, cv_ladder, select_by_simulation
+from .select import (
+    best_per_support,
+    cv_ladder,
+    select_by_simulation,
+    stability_selection,
+    two_stage_recovery,
+)
+from .weak import WeakDataDrivenProblem, test_function_matrices, weak_pair

@@ -26,14 +26,16 @@ def masked_lstsq(gram, corr, active, ridge=0.0):
 
     ``gram``: (..., m, m), ``corr``: (..., m), ``active``: (..., m) bool, with
     the leading dimensions broadcast.  Inactive entries of the solution are
-    exactly zero.
+    exactly zero.  An exactly singular system gives the LU solve's inf/NaN
+    entries, as ``jnp.linalg.solve`` does, and does not raise: such a
+    candidate scores non-finite and the selection carries on.
     """
     mask = active.to(gram.dtype)
     A = gram * mask[..., :, None] * mask[..., None, :]
     A = A + torch.diag_embed(1.0 - mask) + ridge * torch.diag_embed(mask)
     b = corr * mask
     A, b = torch.broadcast_tensors(A, b[..., None])
-    return torch.linalg.solve(A, b[..., 0])
+    return torch.linalg.solve_ex(A, b[..., 0]).result
 
 
 def _eps_ridge(gram):

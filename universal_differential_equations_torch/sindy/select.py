@@ -1,9 +1,7 @@
 """Simulation-validated sparse model selection.
 
-Port of ``universal_differential_equations_tpu/sindy/select.py`` (the parts
-the Lotka-Volterra pipelines use; stability selection and the SR3→STRRidge
-two-stage recovery are not ported yet).  The reference selects SINDy models
-by statistical parsimony and then checks the winner by re-simulating it
+Port of ``universal_differential_equations_tpu/sindy/select.py``.  The
+reference selects SINDy models by statistical parsimony and then checks the winner by re-simulating it
 against the data (``scenario_1.jl:193-207``).  When the regression targets
 are a trained net's outputs, their error is structured and fit consistently
 across CV folds, so statistics alone over-select; re-simulation through the
@@ -17,6 +15,10 @@ ODE separates the candidates.
   ladder rungs with a fixed-step solver and picks the sparsest one that
   reproduces the data; with ``refit_iters > 0`` each finalist's
   coefficients are first refit to the trajectory (BFGS or LM).
+* :func:`two_stage_recovery` is the reference's SR3 → STRRidge protocol
+  (``loop_recoveries.jl:100-125``); it runs under ``torch.func.vmap``.
+* :func:`stability_selection` reports per-term selection frequencies over
+  random row subsamples (Meinshausen & Bühlmann).
 
 Where JAX ``vmap``s over candidates, the port gives them a leading lane
 dimension: the combinations integrate as lanes of ``integrate_fixed``, so
@@ -30,10 +32,84 @@ from typing import Callable, Sequence, Tuple
 import torch
 
 from ..core.integrate import integrate_fixed
-from .optimizers import masked_lstsq
-from .solve import DataSampler
+from .optimizers import SR3, masked_lstsq
+from .solve import DataSampler, _svht_denoise
 
-__all__ = ["best_per_support", "cv_ladder", "select_by_simulation"]
+__all__ = ["best_per_support", "cv_ladder", "select_by_simulation",
+           "stability_selection", "two_stage_recovery"]
+
+
+def two_stage_recovery(theta, Y, lams, *, nu: float = 0.1, sr3_maxiter: int = 500,
+                       refit_threshold: float = 0.01, refit_ridge: float = 0.01,
+                       refit_maxiter: int = 10, normalize: bool = True,
+                       denoise: bool = True, g=None):
+    """The reference's SR3 → STRRidge two-stage recovery
+    (``loop_recoveries.jl:100-125``).
+
+    Stage 1, structure search: SR3(ν=``nu``) over the threshold grid ``lams``
+    on the normalized (and optionally SVHT-denoised) normal equations; per
+    target, candidates are scored by ``g(l0, l2) = inf if l0 < 1 else
+    ‖(l0, l2)‖`` with ``l0`` the support size and ``l2`` the residual norm —
+    empty models are rejected, otherwise sparsity dominates.
+
+    Stage 2, parameter refit: the winning support is frozen and the
+    coefficients are re-estimated by STRRidge(``refit_threshold``)
+    restricted to it (re-thresholding may only drop frozen terms), then a
+    final least-squares fit on the surviving support.
+
+    Args:
+      theta: (N, m) feature matrix Θ(X).
+      Y: (N,) or (N, T) regression target(s).
+      lams: SR3 threshold grid (keep ``sr3_maxiter`` high: an under-converged
+        SR3 alternation skips support sizes along the λ path).
+      g: optional replacement objective ``g(l0, l2) -> score`` (lower is
+        better, ``inf`` = rejected).
+
+    Returns ``C``: (m, T) coefficients in raw feature scale ((m,) if ``Y`` was
+    1-D).  Reads nothing on the host, so it runs under ``torch.func.vmap``.
+    """
+    theta = torch.as_tensor(theta)
+    Y2 = torch.as_tensor(Y, dtype=theta.dtype, device=theta.device)
+    squeeze = Y2.ndim == 1
+    if squeeze:
+        Y2 = Y2[:, None]
+    n_rows, m = theta.shape
+    if denoise:
+        theta = _svht_denoise(theta)
+    if normalize:
+        fsc = torch.linalg.vector_norm(theta, dim=0) / (1.0 * n_rows) ** 0.5
+        fsc = torch.where(fsc > 0, fsc, torch.ones_like(fsc))
+    else:
+        fsc = torch.ones((m,), dtype=theta.dtype, device=theta.device)
+    th_n = theta / fsc
+    gram = th_n.T @ th_n
+    opt = SR3(thresholds=tuple(float(x) for x in lams), nu=nu, maxiter=sr3_maxiter)
+    if g is None:
+        g = lambda l0, l2: torch.where(l0 < 1.0, torch.full_like(l0, float("inf")),
+                                       torch.sqrt(l0**2 + l2**2))
+    eps_ridge = 10.0 * torch.finfo(gram.dtype).eps * torch.diagonal(gram).mean()
+
+    def per_target(y):
+        ysc = torch.sqrt(torch.mean(y**2)) + 1e-30
+        yn = y / ysc if normalize else y
+        corr = th_n.T @ yn
+        xi, active = opt.fit_grid(gram, corr)  # (L, m)
+        rss = (torch.einsum("li,ij,lj->l", xi, gram, xi) - 2.0 * (xi @ corr)
+               + torch.sum(yn**2))
+        l2err = torch.sqrt(torch.clamp(rss, min=0.0))
+        score = g(active.sum(dim=1).to(xi.dtype), l2err)
+        # a 1-element index: under vmap a 0-d one is read back on the host
+        frozen = active[torch.argmin(score).reshape(1)][0]
+        act = frozen
+        for _ in range(refit_maxiter):
+            xi_r = masked_lstsq(gram, corr, act, refit_ridge)
+            act = (xi_r.abs() >= refit_threshold) & frozen
+        xi_f = masked_lstsq(gram, corr, act, eps_ridge)
+        xi_f = torch.where(act, xi_f, torch.zeros_like(xi_f))
+        return xi_f * (ysc if normalize else 1.0) / fsc
+
+    C = torch.stack([per_target(Y2[:, j]) for j in range(Y2.shape[1])], dim=1)
+    return C[:, 0] if squeeze else C
 
 
 def cv_ladder(theta, y, optimizer, max_support, *, per_size: int = 1,
@@ -98,6 +174,62 @@ def cv_ladder(theta, y, optimizer, max_support, *, per_size: int = 1,
         cv.append(torch.sum(rb**2, dim=0) / torch.clamp(wb.sum(), min=1.0))
     cv = torch.stack(cv).mean(dim=0)
     return best_per_support(xi * ysc / fsc, active, cv, max_support, per_size=per_size)
+
+
+def stability_selection(theta, y, optimizer, generator, *, n_subsets: int = 64,
+                        frac: float = 0.7, max_support: int = 0, normalize: bool = True):
+    """Per-term selection frequencies over random row subsamples (stability
+    selection, Meinshausen & Bühlmann 2010, arXiv:0809.2932): how often each
+    library term survives sparse regression when the data are repeatedly
+    subsampled.  Terms near 1 are stably identified; terms that flicker are
+    noise artifacts.
+
+    Args:
+      theta: (N, m) feature matrix (pointwise Θ(X) or a weak pair's G).
+      y: (N,) regression target.
+      optimizer: ``fit_grid(gram, corr) -> (xi, active)`` (STLSQ, SR3, …);
+        its λ grid is the path the frequencies maximize over.
+      generator: ``torch.Generator`` (CPU) for the Bernoulli row draws; the
+        JAX package's ``key`` draws other rows.
+      n_subsets / frac: number of subsamples and kept-row probability.
+      max_support: only path candidates with support size in
+        [1, max_support] count (0 = any nonempty candidate).
+      normalize: column-RMS feature and RMS target scaling.
+
+    Returns ``freq``: (m,), the fraction of subsamples in which term i is
+    active in some counted path candidate (a stable support is e.g.
+    ``freq >= 0.6``).
+    """
+    theta = torch.as_tensor(theta)
+    keep = torch.bernoulli(torch.full((n_subsets, theta.shape[0]), frac, dtype=torch.float64),
+                           generator=generator).to(device=theta.device, dtype=torch.bool)
+    return _selection_frequencies(theta, y, optimizer, keep, max_support, normalize)
+
+
+def _selection_frequencies(theta, y, optimizer, keep, max_support, normalize):
+    """:func:`stability_selection` for a given (B, N) boolean row mask
+    ``keep``: the B subsampled fits run as one ``torch.func.vmap`` batch."""
+    theta = torch.as_tensor(theta)
+    y = torch.as_tensor(y, dtype=theta.dtype, device=theta.device)
+    n_rows = theta.shape[0]
+    if normalize:
+        fsc = torch.linalg.vector_norm(theta, dim=0) / (1.0 * n_rows) ** 0.5
+        th_n = theta / torch.where(fsc > 0, fsc, torch.ones_like(fsc))
+        yn = y / (torch.sqrt(torch.mean(y**2)) + 1e-30)
+    else:
+        th_n, yn = theta, y
+
+    def one(w):
+        wf = w.to(th_n.dtype)
+        _, active = optimizer.fit_grid(th_n.T @ (th_n * wf[:, None]), th_n.T @ (yn * wf))
+        k = active.sum(dim=1)
+        ok = k >= 1
+        if max_support:
+            ok = ok & (k <= max_support)
+        return (active & ok[:, None]).any(dim=0)
+
+    sel = torch.func.vmap(one)(torch.as_tensor(keep, dtype=torch.bool, device=theta.device))
+    return sel.to(th_n.dtype).mean(dim=0)
 
 
 def best_per_support(xi, active, score, max_support, per_size: int = 1):

@@ -15,8 +15,9 @@ Port of ``universal_differential_equations_tpu/sindy/solve.py``
 
 The λ-grid sweep runs on the data's device, one batched solve per
 thresholding step; targets and CV folds are a host loop over those batches.
-Only the final selections return to the host.  The weak-form problem of the
-JAX package is not ported yet.
+Only the final selections return to the host.  A ``WeakDataDrivenProblem``
+(:mod:`.weak`) hands the front end its weak pair (G, B) in place of
+(Θ(X), Y).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import torch
 from .basis import Basis
 from .collocation import collocate_data
 from .optimizers import STLSQ, masked_lstsq
+from .weak import WeakDataDrivenProblem
 
 __all__ = [
     "DirectDataDrivenProblem",
@@ -92,14 +94,17 @@ class DataSampler:
 
 def _svht_denoise(X):
     """Optimal singular-value hard threshold (Gavish & Donoho 2014) — the
-    reference's ``denoise=true`` option, applied to the candidate matrix Θ."""
+    reference's ``denoise=true`` option, applied to the candidate matrix Θ.
+    The median of the (descending) singular values is read at fixed
+    positions, as numpy's median, so nothing is read on the host and it runs
+    under ``torch.func.vmap`` (``select.two_stage_recovery``'s lanes)."""
     N, n = X.shape
     U, s, Vh = torch.linalg.svd(X, full_matrices=False)
     beta = min(N, n) / max(N, n)
     omega = 0.56 * beta**3 - 0.95 * beta**2 + 1.82 * beta + 1.43
-    tau = omega * torch.quantile(s, 0.5)  # numpy's median
-    s_thr = torch.where(s >= tau, s, torch.zeros_like(s))
-    return U @ torch.diag(s_thr) @ Vh
+    k = s.shape[-1]
+    med = s[k // 2] if k % 2 else 0.5 * (s[k // 2 - 1] + s[k // 2])
+    return (U * torch.where(s >= omega * med, s, torch.zeros_like(s))) @ Vh
 
 
 def _aicc(k, rss, N):
@@ -136,7 +141,12 @@ def sindy(
     keeps the data's dtype.
     """
     optimizer = STLSQ() if optimizer is None else optimizer
-    if isinstance(problem, ContinuousDataDrivenProblem):
+    theta_raw = None
+    if isinstance(problem, WeakDataDrivenProblem):
+        # weak-form rows: the feature matrix is already integrated, so the
+        # "sample count" below is the number of test windows
+        theta_raw, Y = problem.realize(basis)
+    elif isinstance(problem, ContinuousDataDrivenProblem):
         X, Y = problem.realize()
     else:
         X, Y = problem.X, problem.Y
@@ -145,7 +155,8 @@ def sindy(
         Y = Y[:, None]
     d = Y.shape[1]
 
-    theta_raw = basis.theta(torch.as_tensor(X))  # (N, m)
+    if theta_raw is None:
+        theta_raw = basis.theta(torch.as_tensor(X))  # (N, m)
     N = theta_raw.shape[0]
     if denoise:
         theta_raw = _svht_denoise(theta_raw)
