@@ -30,8 +30,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    it kernel A's and kernel B's must be positive and the runtime-width
    count 0 (the paper net runs its compiled kernels); the final loss must
    be finite and no larger than the initial one.
-5. ``bench.py``'s task on the port: the Fourier variant trained by LM to
-   loss < 0.01 (at most 100 iterations), timed.
+5. ``bench.py``'s task on the port, through the port benchmark's own
+   ``train_run`` (``universal_differential_equations_torch/bench.py``) for
+   seed 0: the Fourier variant trained by LM to loss < 0.01 (at most 100
+   iterations), timed.
 6. Lotka-Volterra scenario 1 on the card, every stage on ``cuda:0`` (this
    path runs no hand-written kernel; the kernels' counters are zeroed before
    and reported after):
@@ -97,6 +99,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    (g) scenario 3 in float32: 10 ADAM steps and 2 LM iterations leave a
        finite, non-rising loss; SINDy on pairs from the true reaction
        u(1−u) recovers it within 1e-3 on [0, 1].
+9. The Fisher-KPP case study (``examples/fisher_kpp.py``), MLP variant,
+   seed 0, float32: (a) one ADAM gradient of its loss through kernel A and
+   ``FusedUpdetRHS``'s reverse rule equals the same gradient with the fused
+   dispatch off (the plain RHS, on the card) to 1e-4 relative, timed against
+   it; (b) the example's ``train`` with 5 ADAM steps and 3 LM iterations, the
+   launch counters zeroed before and read after each stage: kernel A
+   launches under ADAM, A and B under LM, the runtime-width count is 0 and
+   the loss falls.
+10. The ensemble runner (``ensemble/runner.py``): ``ensemble_run`` over
+    Lotka-Volterra lanes whose initial states carry ``noise_schedule``'s
+    levels (float32, rtol 1e-6), at L = 64 and L = 500 lanes drawn evenly
+    from the 500-run study: every lane succeeds, 3 lanes equal their solo
+    solves to 1e-5 relative, and the CUDA kernels (``torch.profiler``) at
+    L = 500 are at most 1.5 times those at L = 64; wall, kernels and peak
+    device memory are printed for each.
+11. The new public surface: Dopri5, Bosh3, Heun (adaptive, rtol 1e-4) and
+    Euler (1000 fixed steps) solve Lotka-Volterra on the card in float32 and
+    match the port's float64 CPU solve to 1e-4 relative; ``StencilConv1D``
+    (1e-6) and ``neural_ode`` (1e-4) match float64 CPU runs; a
+    ``KeyedArchive`` and a ``save_pytree``/``load_pytree`` round-trip to the
+    card in a temporary directory are exact.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel with
 its bound on the card (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s float32); the
@@ -405,26 +428,6 @@ def phase_kernel(device):
     return res
 
 
-def _residual_fn(rhs, ts, ys):
-    """The residuals of examples/fisher_kpp/fisher_kpp.py:69-79, on the port."""
-    import torch
-    import universal_differential_equations_torch as ude
-    from universal_differential_equations_torch.models import fisher_kpp as fk
-
-    def residuals(p):
-        sol = ude.solve(
-            ude.ODEProblem(rhs, ys[0], (0.0, fk.T_END), p), ude.Tsit5(),
-            saveat=ts, rtol=1e-4, atol=1e-6,
-            adjoint=ude.ForwardSensitivity(), max_steps=192,
-        )
-        pen = torch.sqrt(fk.zero_sum_penalty(p) + 1e-30)
-        r = torch.cat([(sol.ys - ys).reshape(-1), pen[None]])
-        # unstable candidates that exhaust max_steps -> inf residuals
-        return torch.where(sol.success, r, torch.inf)
-
-    return residuals
-
-
 def _timed_lm(residuals, params0, **kw):
     import torch
     import universal_differential_equations_torch as ude
@@ -455,13 +458,13 @@ def phase_main_path(device):
     ts, ys = fk.generate_data(device=device)  # raises unless the truth solve succeeded
     log(f"[main] truth data {tuple(ys.shape)} on {ys.device} in {time.perf_counter() - t0:.2f} s")
     rhs, params0 = fk.make_model(torch.Generator().manual_seed(0), "mlp", device=device)
-    residuals = _residual_fn(rhs, ts, ys)
+    residuals = fk.make_residuals(rhs, ts, ys)
 
     # the residuals agree with the same model's plain path (CPU, float32) on
     # the initial parameters; the solves run at rtol=1e-4, so allow 1e-3
     r0 = residuals(params0)
     rhs_c, params_c = fk.make_model(torch.Generator().manual_seed(0), "mlp")
-    r0_c = _residual_fn(rhs_c, ts.cpu(), ys.cpu())(params_c)
+    r0_c = fk.make_residuals(rhs_c, ts.cpu(), ys.cpu())(params_c)
     if not torch.isfinite(r0).all() or r0.shape != (ys.numel() + 1,):
         raise AssertionError(f"initial residuals not finite or of shape {tuple(r0.shape)}")
     dr = (r0.cpu() - r0_c).abs().max().item()
@@ -479,7 +482,7 @@ def phase_main_path(device):
     x0, unravel = ravel_pytree(params0)
     J = torch.func.jacfwd(lambda x: residuals(unravel(x)))(x0)
     xc, unravel_c = ravel_pytree(params_c)
-    res_c = _residual_fn(rhs_c, ts.cpu(), ys.cpu())
+    res_c = fk.make_residuals(rhs_c, ts.cpu(), ys.cpu())
     J_c = torch.func.jacfwd(lambda x: res_c(unravel_c(x)))(xc)
     diff = (J.cpu() - J_c)[:-1].abs()
     scale = J_c[:-1].abs().max().item()
@@ -513,16 +516,16 @@ def phase_main_path(device):
 
 
 def phase_bench_task(device, card, ts, ys):
+    """Phase 5: the port benchmark's ``train_run`` for seed 0."""
     import torch
+    from universal_differential_equations_torch import bench
     from universal_differential_equations_torch.models import fisher_kpp as fk
 
-    rhs, params0 = fk.make_model(torch.Generator().manual_seed(0), "fourier", device=device)
-    res, wall, walls = _timed_lm(_residual_fn(rhs, ts, ys), params0, maxiters=100,
-                                 loss_tol=0.01)
+    rhs, _ = fk.make_model(torch.Generator().manual_seed(0), "fourier", device=device)
+    wall, res = bench.train_run(bench.initial_params(0, device), fk.make_residuals(rhs, ts, ys))
     loss = float(res.loss)
-    log(f"[bench] fourier train-to-loss 0.01 on the port: loss {loss:.6g} in "
-        f"{res.iterations} LM iterations, {wall:.2f} s wall "
-        f"(median iteration {statistics.median(walls):.3f} s) on {card}")
+    log(f"[bench] fourier train-to-loss 0.01 on the port (bench.train_run, seed 0): loss "
+        f"{loss:.6g} in {res.iterations} LM iterations, {wall:.2f} s wall on {card}")
     if not loss < 0.01:
         raise AssertionError(f"fourier LM did not reach loss < 0.01: {loss}")
 
@@ -531,6 +534,19 @@ def _sync():
     import torch
 
     torch.cuda.synchronize()
+
+
+def median_s(fn, calls):
+    """Median wall seconds of ``calls`` calls of ``fn``, the card synchronised
+    around each."""
+    walls = []
+    for _ in range(calls):
+        _sync()
+        t0 = time.perf_counter()
+        fn()
+        _sync()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls)
 
 
 def _rel(a, b):
@@ -583,16 +599,6 @@ def phase_lv(device, card):
         (g,) = torch.autograd.grad(loss, x)
         return loss.detach(), g
 
-    def median_s(fn, calls=5):
-        walls = []
-        for _ in range(calls):
-            _sync()
-            t0 = time.perf_counter()
-            fn()
-            _sync()
-            walls.append(time.perf_counter() - t0)
-        return statistics.median(walls)
-
     interp, disc = ude.InterpolatingAdjoint(), ude.DiscreteAdjoint()
     _, g_i32 = grad(flat32, Xn32, ts32, 1e-6, interp)
     _, g_d32 = grad(flat32, Xn32, ts32, 1e-6, disc)
@@ -611,8 +617,8 @@ def phase_lv(device, card):
         ude.ODEProblem(rhs, X_noisy64[0], (0.0, 3.0), unravel(x)), ude.Tsit5(), saveat=ts64,
         rtol=1e-8, atol=1e-8).ys - X_noisy64) ** 2))(flat64)
     r_fn = _rel(g_fn, g_i64)
-    s32 = median_s(lambda: grad(flat32, Xn32, ts32, 1e-6, interp))
-    s64 = median_s(lambda: grad(flat64, X_noisy64, ts64, 1e-8, interp))
+    s32 = median_s(lambda: grad(flat32, Xn32, ts32, 1e-6, interp), calls=5)
+    s64 = median_s(lambda: grad(flat64, X_noisy64, ts64, 1e-8, interp), calls=5)
     _check(torch.isfinite(g_i32).all() and r32 <= 1e-3 and r64 <= 1e-6 and r_cpu <= 1e-9
            and r_fn <= 1e-12,
            f"[lv b] interpolating-adjoint gradient ({flat32.numel()} params): f32 vs "
@@ -1065,6 +1071,204 @@ def phase_seir_lv3(device, card):
         raise AssertionError("phase 8 launched a fused RHS kernel; its paths reach none")
 
 
+def _kernels_and_peak(fn, device):
+    """``(CUDA kernels, peak device bytes)`` of one call of ``fn``: the kernels
+    counted by ``torch.profiler``; the peak from the allocator's statistics,
+    less what was allocated before the call, so it is the call's own."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync()
+    torch.cuda.reset_peak_memory_stats(device)
+    held = torch.cuda.memory_allocated(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync()
+    kernels = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return kernels, torch.cuda.max_memory_allocated(device) - held
+
+
+def phase_fkpp(device, card, ts, ys):
+    """Phase 9: the Fisher-KPP case study's training through both kernels."""
+    import torch
+    from universal_differential_equations_torch.examples import fisher_kpp as fx
+    from universal_differential_equations_torch.flatten_util import ravel_pytree
+    from universal_differential_equations_torch.models import fisher_kpp as fk
+    from universal_differential_equations_torch.ops import stencil
+
+    t_phase = time.perf_counter()
+    rhs, params0 = fk.make_model(torch.Generator().manual_seed(0), "mlp", device=device)
+    residuals = fk.make_residuals(rhs, ts, ys)
+    loss = fx.make_loss(residuals)
+    flat, unravel = ravel_pytree(params0)
+
+    def grad():
+        x = flat.clone().requires_grad_(True)
+        value = loss(unravel(x))
+        return value.detach(), torch.autograd.grad(value, x)[0]
+
+    # (a) one ADAM gradient through kernel A (forward) and FusedUpdetRHS's
+    # reverse rule, against the same gradient with the fused dispatch off
+    stencil.launches = stencil.tangent_launches = stencil.generic_launches = 0
+    l_k, g_k = grad()
+    a_grad = stencil.launches
+    s_k = median_s(grad, calls=3)
+    use_fused = fk._use_fused
+    fk._use_fused = lambda u: False
+    try:
+        l_p, g_p = grad()
+        s_p = median_s(grad, calls=3)
+    finally:
+        fk._use_fused = use_fused
+    rg = _rel(g_k, g_p)
+    _check(a_grad > 0 and bool(torch.isfinite(g_k).all()) and rg <= 1e-4,
+           f"[fkpp a] ADAM gradient of the mlp loss ({flat.numel()} params, float32): kernel A "
+           f"{a_grad} launches; loss {float(l_k):.6g} (plain {float(l_p):.6g}); kernel vs plain "
+           f"RHS gradient rel {rg:.3e} (1e-4); seconds per gradient, median of 3: kernel "
+           f"{s_k:.3f}, plain {s_p:.3f} on {card}")
+
+    # (b) the example's own training function: 5 ADAM steps, then 3 LM
+    # iterations (no refine pass); the launch counters are read and zeroed
+    # after each stage
+    stages = []
+    clock = [time.perf_counter()]
+
+    def on_stage(name, value):
+        now = time.perf_counter()
+        stages.append((name, value, now - clock[0], stencil.launches, stencil.tangent_launches,
+                       stencil.generic_launches))
+        stencil.launches = stencil.tangent_launches = stencil.generic_launches = 0
+        clock[0] = now
+
+    loss0 = float(l_k)
+    stencil.launches = stencil.tangent_launches = stencil.generic_launches = 0
+    _sync()
+    clock[0] = time.perf_counter()
+    _, final = fx.train("mlp", params0, residuals, adam_steps=5, lm_iters=3, refine_steps=0,
+                        on_stage=on_stage)
+    for name, value, wall, a, b, generic in stages:
+        log(f"[fkpp b] {name}: loss {value:.6g}, {wall:.2f} s; launches kernel A {a}, kernel B "
+            f"{b}, runtime-width {generic}")
+    by = {name: (a, b, generic) for name, _, _, a, b, generic in stages}
+    _check(by["adam"][0] > 0 and by["adam"][1] == 0 and by["lm"][0] > 0 and by["lm"][1] > 0
+           and not any(v[2] for v in by.values())
+           and math.isfinite(final) and final < loss0,
+           f"[fkpp b] fisher_kpp.train (mlp): loss {loss0:.6g} -> {final:.6g}; kernel A under "
+           f"ADAM, A and B under LM, runtime-width 0; phase wall "
+           f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_ensemble(device, card):
+    """Phase 10: the ensemble runner over Lotka-Volterra lanes."""
+    import torch
+    import universal_differential_equations_torch as ude
+    from universal_differential_equations_torch.ensemble import ensemble_run, noise_schedule
+    from universal_differential_equations_torch.models import lotka_volterra as lv
+
+    f32 = torch.float32
+    ts = torch.linspace(0.0, 3.0, 31, dtype=f32, device=device)
+    u0, p = lv.U0.to(device, f32), lv.P_TRUE.to(device, f32)
+    study = 500  # the noise study's runs: 5 levels of 100
+    z = torch.rand((study, 2), generator=torch.Generator().manual_seed(11), dtype=f32)
+    z = (2.0 * z - 1.0).to(device)
+
+    def run(args):
+        i, zi = args
+        x0 = u0 * (1.0 + 10.0 * noise_schedule(i).to(f32) * zi)
+        sol = ude.solve(ude.ODEProblem(lv.lotka_rhs, x0, (0.0, 3.0), p), ude.Tsit5(),
+                        saveat=ts, rtol=1e-6, atol=1e-6, adjoint=ude.NoAdjoint())
+        return sol.ys, sol.success
+
+    rows = {}
+    for lanes in (64, study):
+        # the same spread of noise levels at both sizes: lanes drawn evenly
+        # from the study's 500 runs
+        idx = (torch.arange(lanes) * study // lanes).to(device)
+        batch = (idx, z[idx])
+        ensemble_run(run, batch)  # warm-up
+        _sync()
+        t0 = time.perf_counter()
+        res = ensemble_run(run, batch)
+        _sync()
+        wall = time.perf_counter() - t0
+        kernels, peak = _kernels_and_peak(lambda: ensemble_run(run, batch), device)
+        worst = 0.0
+        for k in (0, lanes // 2, lanes - 1):
+            solo, _ = run((idx[k], z[idx[k]]))
+            worst = max(worst, _rel(res.outputs[k], solo))
+        rows[lanes] = (wall, kernels, peak)
+        _check(res.num_success == lanes and worst <= 1e-5,
+               f"[ensemble] L = {lanes}: {res.num_success} of {lanes} lanes succeed; 3 lanes "
+               f"vs their solo solves rel {worst:.3e} (1e-5); {wall:.3f} s, {kernels} CUDA "
+               f"kernels, peak device memory {peak / 2**20:.1f} MiB on {card}")
+    ratio = rows[study][1] / rows[64][1]
+    _check(ratio <= 1.5,
+           f"[ensemble] L = {study} vs 64: kernels x{ratio:.3f} (bound 1.5), wall "
+           f"x{rows[study][0] / rows[64][0]:.3f}, seconds per lane {rows[64][0] / 64:.2e} -> "
+           f"{rows[study][0] / study:.2e}")
+
+
+def phase_surface(device, card):
+    """Phase 11: the RK tables, StencilConv1D, neural_ode and KeyedArchive."""
+    import tempfile
+
+    import torch
+    import universal_differential_equations_torch as ude
+    from universal_differential_equations_torch.core.integrate import integrate_fixed
+    from universal_differential_equations_torch.models import lotka_volterra as lv
+
+    f32, f64, cpu = torch.float32, torch.float64, torch.device("cpu")
+    tol = 1e-4
+    ts = torch.linspace(0.0, 3.0, 13, dtype=f64)
+
+    def lv_solve(solver, dtype, dev):
+        prob = ude.ODEProblem(lv.lotka_rhs, lv.U0.to(dev, dtype), (0.0, 3.0),
+                              lv.P_TRUE.to(dev, dtype))
+        if isinstance(solver, ude.Euler):  # fixed-step use only
+            return integrate_fixed(prob.f, prob.u0, 0.0, 3.0, prob.args, solver, 1000)[1][-1]
+        sol = ude.solve(prob, solver, saveat=ts.to(dev, dtype), rtol=tol, atol=tol,
+                        adjoint=ude.NoAdjoint(), max_steps=8192)
+        if not bool(sol.success):
+            raise AssertionError(f"[surface] {solver.name} solve on {dev} failed")
+        return sol.ys
+
+    for name in ("Dopri5", "Bosh3", "Euler", "Heun"):
+        solver = getattr(ude, name)()
+        t0 = time.perf_counter()
+        ys = lv_solve(solver, f32, device)
+        _sync()
+        wall = time.perf_counter() - t0
+        r = _rel(ys.cpu().double(), lv_solve(solver, f64, cpu))
+        _check(r <= tol, f"[surface] {name} LV on the card (float32) vs the port's float64 CPU "
+               f"solve: rel {r:.3e} ({tol:g}), {wall:.2f} s")
+
+    conv = ude.StencilConv1D(3)
+    w = conv.init(torch.Generator().manual_seed(0), f64)
+    x = torch.rand((4, 26), generator=torch.Generator().manual_seed(1), dtype=f64)
+    rc = _rel(conv({"w": w["w"].to(device, f32)}, x.to(device, f32)).cpu().double(),
+              conv(w, x))
+    net = ude.MLP([2, 8, 2], activation="tanh")
+    p_net = net.init(torch.Generator().manual_seed(2), f32, device)
+    sol = ude.neural_ode(net, p_net, torch.tensor([1.0, -1.0], device=device), (0.0, 1.0),
+                         saveat=torch.linspace(0.0, 1.0, 5, device=device))
+    p_cpu = [{k: v.cpu().double() for k, v in layer.items()} for layer in p_net]
+    ref = ude.neural_ode(net, p_cpu, torch.tensor([1.0, -1.0], dtype=f64), (0.0, 1.0),
+                         saveat=torch.linspace(0.0, 1.0, 5, dtype=f64))
+    rn = _rel(sol.ys.cpu().double(), ref.ys)
+    with tempfile.TemporaryDirectory() as tmp:
+        arch = ude.KeyedArchive(tmp)
+        arch.save("lane_0", params=p_net, loss=torch.tensor(0.25, device=device))
+        got = arch.load("lane_0", device=device)
+        ude.save_pytree(f"{tmp}/net", p_net)
+        back = ude.load_pytree(f"{tmp}/net", like=p_net, device=device)
+    same = (float(got["loss"]) == 0.25 and got["params__0"].device == device
+            and all(torch.equal(la[k], lb[k]) for la, lb in zip(p_net, back) for k in la))
+    _check(rc <= 1e-6 and bool(sol.success) and rn <= 1e-4 and same,
+           f"[surface] StencilConv1D card vs float64 CPU rel {rc:.3e} (1e-6); neural_ode on the "
+           f"card vs float64 CPU rel {rn:.3e} (1e-4); KeyedArchive and save/load_pytree "
+           f"round-trip to {device}: exact")
+
+
 def main():
     if not (ROOT / PKG).is_dir():
         print(f"chip_smoke.py: the package {PKG}/ is not beside this script", file=sys.stderr)
@@ -1084,6 +1288,9 @@ def main():
     phase_lv(device, card)
     phase_lanes(device, card)
     phase_seir_lv3(device, card)
+    phase_fkpp(device, card, ts, ys)
+    phase_ensemble(device, card)
+    phase_surface(device, card)
     log(f"[total] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     # each kernel at the main path's shape: N = 26, and T = 465 directions

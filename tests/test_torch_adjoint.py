@@ -190,3 +190,43 @@ def test_non_float_args_raise_a_named_type_error(name):
                            args)
     with pytest.raises(TypeError, match="floating-point"):
         tude.solve(prob, tude.Tsit5(), adjoint=getattr(tude, name)())
+
+
+def _decay_problem(pkg, ones, k):
+    """``du/dt = -k·u`` with ``args = {"k": k, "c": ones(2)}``: a Python
+    scalar leaf beside an array (``tests/test_api_contracts.py:51-68``)."""
+    return pkg.ODEProblem(lambda t, u, a: -a["k"] * u, ones(2), (0.0, 1.0),
+                          {"k": k, "c": ones(2)})
+
+
+def _decay_grad(prob, adjoint):
+    u0 = torch.ones(2, dtype=F64, requires_grad=True)
+    sol = tude.solve(tude.remake(prob, u0=u0), tude.Tsit5(), adjoint=adjoint)
+    return torch.autograd.grad(torch.sum(sol.ys ** 2), u0)[0]
+
+
+@pytest.mark.parametrize("name", ADJOINTS)
+def test_python_int_args_raise_the_named_error_like_jax(name):
+    # mirrors tests/test_api_contracts.py::test_nonexact_args_under_continuous_adjoint_raises
+    # with the same regex; DiscreteAdjoint, which the error suggests, takes the same args
+    prob = _decay_problem(tude, lambda n: torch.ones(n, dtype=F64), 3)
+    with pytest.raises(TypeError, match="inexact.*DiscreteAdjoint"):
+        _decay_grad(prob, getattr(tude, name)())
+    g = _decay_grad(prob, tude.DiscreteAdjoint())
+    assert bool(torch.isfinite(g).all())
+
+
+def test_python_float_args_leaf_is_differentiated_like_jax():
+    # a Python float leaf becomes a tensor of the state's dtype; the gradient
+    # equals jax.grad's through JAX's InterpolatingAdjoint (float64, 1e-8 relative)
+    prob_j = _decay_problem(jude, jnp.ones, 3.0)
+
+    def loss_j(u0):
+        sol = jude.solve(jude.remake(prob_j, u0=u0), jude.Tsit5(),
+                         adjoint=jude.InterpolatingAdjoint())
+        return jnp.sum(sol.ys ** 2)
+
+    g_j = np.asarray(jax.grad(loss_j)(jnp.ones(2)))
+    g_t = _decay_grad(_decay_problem(tude, lambda n: torch.ones(n, dtype=F64), 3.0),
+                      tude.InterpolatingAdjoint())
+    np.testing.assert_allclose(g_t.numpy(), g_j, rtol=1e-8, atol=0)

@@ -217,6 +217,31 @@ def test_lm_main_path_goes_through_the_kernel(cuda_device):
     assert np.isfinite(float(res.loss)) and float(res.loss) <= loss0
 
 
+
+def test_adam_gradient_of_the_case_study_goes_through_the_kernel(cuda_device, monkeypatch):
+    # examples/fisher_kpp.py's ADAM warmup: the MLP loss's gradient through
+    # kernel A and FusedUpdetRHS.backward equals the plain RHS's on the card
+    from universal_differential_equations_torch.examples import fisher_kpp as fx
+    from universal_differential_equations_torch.flatten_util import ravel_pytree
+
+    ts, ys = tfk.generate_data(device=cuda_device)
+    rhs, params0 = tfk.make_model(torch.Generator().manual_seed(0), "mlp", device=cuda_device)
+    loss = fx.make_loss(tfk.make_residuals(rhs, ts, ys))
+    flat, unravel = ravel_pytree(params0)
+
+    def grad():
+        x = flat.clone().requires_grad_(True)
+        return torch.autograd.grad(loss(unravel(x)), x)[0]
+
+    before = stencil.launches
+    g_kernel = grad()
+    assert stencil.launches > before
+    monkeypatch.setattr(tfk, "_use_fused", lambda u: False)
+    g_plain = grad()
+    assert torch.isfinite(g_kernel).all()
+    # float32 through the adaptive solve: 1e-4 of the largest entry
+    assert float((g_kernel - g_plain).abs().max()) <= 1e-4 * float(g_plain.abs().max())
+
 def _lv_grad(device, dtype, adjoint):
     """The gradient of LV scenario 1's loss for the full RBF model, at 1e-8."""
     from universal_differential_equations_torch.flatten_util import ravel_pytree

@@ -27,8 +27,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from universal_differential_equations_torch.examples import seir_exposure as se  # noqa: E402
-from universal_differential_equations_torch.examples.lv_scenario_1 import (  # noqa: E402
-    _card, stopwatch)
+from universal_differential_equations_torch.examples.lv_scenario_1 import stopwatch  # noqa: E402
+from universal_differential_equations_torch.utils import card_name  # noqa: E402
 
 
 def main():
@@ -54,7 +54,7 @@ def main():
         lap("train_exposure_ude")
         res.update(se.recovery_arms(rhs, net, p_ude, ts, data, lap))
         res["gates"] = se.gates(res, args.quick)
-    out = dict(device=_card(device), stage=args.stage, quick=args.quick, walls=walls,
+    out = dict(device=card_name(device), stage=args.stage, quick=args.quick, walls=walls,
                total_s=sum(walls.values()), **res)
     line = json.dumps(out)
     if args.out:

@@ -2,7 +2,7 @@
 
 A port of ``universal_differential_equations_tpu`` (JAX/XLA/Pallas on a TPU)
 to PyTorch and hand-written CUDA kernels on an NVIDIA H100.  The JAX package
-stays the reference the port is tested against.  This package holds four
+stays the reference the port is tested against.  This package holds these
 slices of the port:
 
 * A: the Fisher-KPP universal PDE trained by Levenberg-Marquardt, with
@@ -21,7 +21,13 @@ slices of the port:
   ``utils.rescale_problem``, ``examples/seir_exposure.py``), weak-form SINDy
   (``sindy/weak.py``), stability selection and the SR3→STRRidge two-stage
   recovery (``sindy/select.py``), and LV scenario 3, the universal PDE with
-  reaction recovery (``examples/lv_scenario_3.py``).
+  reaction recovery (``examples/lv_scenario_3.py``);
+* A′ and D0: the Fisher-KPP case study in all seven variants
+  (``examples/fisher_kpp.py``; its MLP variants train by ADAM through the
+  fused kernel's reverse rule, then LM), the headline benchmark
+  (``bench.py``), the remaining explicit RK tables (Dopri5, Bosh3, Euler,
+  Heun), ``StencilConv1D``, ``neural_ode``, checkpoint archives that both
+  packages read (``io/``) and the vmapped ensemble runner (``ensemble/``).
 
 Its directory layout and module names mirror the JAX package's.
 """
@@ -38,7 +44,7 @@ from .api import solve
 from .core.problem import ODEProblem, remake
 from .core.solution import DenseInterpolation, Solution
 from .core.controller import PIController
-from .solvers.runge_kutta import Tsit5, Vern7
+from .solvers.runge_kutta import Bosh3, Dopri5, Euler, Heun, Tsit5, Vern7
 from .adjoint.sensitivity import (
     BacksolveAdjoint,
     DiscreteAdjoint,
@@ -47,7 +53,7 @@ from .adjoint.sensitivity import (
     NoAdjoint,
     QuadratureAdjoint,
 )
-from .nn.layers import Chain, Dense, FourierBasis, MLP, TensorLayer, rbf
+from .nn.layers import Chain, Dense, FourierBasis, MLP, StencilConv1D, TensorLayer, rbf
 from .train import (
     BFGSResult,
     FitResult,
@@ -61,19 +67,23 @@ from .train import (
     reduce_on_plateau,
     shooting_windows,
 )
+from .io.checkpoint import BestCheckpoint, KeyedArchive, load_pytree, save_pytree
+from .models.neural_ode import NeuralODE, neural_ode
 from .convert import params_from_jax
 
 __version__ = "0.1.0"
 __all__ = [
     "solve", "remake", "ODEProblem",
     "Solution", "DenseInterpolation", "PIController",
-    "Tsit5", "Vern7",
+    "Tsit5", "Vern7", "Dopri5", "Bosh3", "Euler", "Heun",
     "NoAdjoint", "DiscreteAdjoint", "ForwardSensitivity",
     "InterpolatingAdjoint", "BacksolveAdjoint", "QuadratureAdjoint",
-    "Chain", "Dense", "MLP", "FourierBasis", "TensorLayer", "rbf",
+    "Chain", "Dense", "MLP", "FourierBasis", "StencilConv1D", "TensorLayer", "rbf",
     "levenberg_marquardt", "LMResult",
     "fit", "fit_bfgs", "FitResult", "reduce_on_plateau",
     "bfgs_minimize", "bfgs_minimize_lanes", "BFGSResult",
     "multiple_shoot", "shooting_windows",
+    "BestCheckpoint", "KeyedArchive", "save_pytree", "load_pytree",
+    "NeuralODE", "neural_ode",
     "params_from_jax",
 ]

@@ -43,7 +43,7 @@ import torch
 from ..core.controller import PIController
 from ..core.integrate import IntegrateResult, integrate_scan, integrate_while
 from ..core.solution import DenseInterpolation
-from ..flatten_util import tree_flatten
+from ..flatten_util import tree_flatten_with_path
 
 __all__ = [
     "AbstractAdjoint",
@@ -116,6 +116,36 @@ class ForwardSensitivity(DiscreteAdjoint):
     checkpoint: bool = False
 
 
+def _float_args(args, y0, adjoint_name):
+    """``(leaves, build)`` of ``args`` for a continuous adjoint.
+
+    The backward pass integrates the args' cotangents as part of the adjoint
+    state, so every leaf must be floating point.  Python floats and numpy
+    floats become tensors of the state's dtype and device (``jnp.asarray``
+    takes them in JAX); ints, bools and non-floating tensors raise the JAX
+    package's named error."""
+    pairs, build = tree_flatten_with_path(args)
+    leaves, bad = [], []
+    for path, leaf in pairs:
+        if isinstance(leaf, (float, np.floating)) or (
+                isinstance(leaf, np.ndarray) and np.issubdtype(leaf.dtype, np.floating)):
+            leaf = torch.as_tensor(leaf, dtype=y0.dtype, device=y0.device)
+        elif isinstance(leaf, torch.Tensor):
+            if not leaf.is_floating_point():
+                bad.append(f"{path} (dtype {leaf.dtype})")
+        else:
+            bad.append(f"{path} (Python {type(leaf).__name__})")
+        leaves.append(leaf)
+    if bad:
+        raise TypeError(
+            f"{adjoint_name} requires problem.args to be a pytree of "
+            f"floating-point (inexact) tensors, but got: {', '.join(bad)}. Cast "
+            f"the leaves to float, or move static integer configuration into "
+            f"the RHS closure, or use DiscreteAdjoint (which differentiates "
+            f"through the stepper and leaves non-inexact args alone).")
+    return leaves, build
+
+
 @dataclasses.dataclass(frozen=True)
 class _ContinuousAdjoint(AbstractAdjoint):
     rtol: Optional[float] = None  # backward-pass tolerances; None = forward's
@@ -134,19 +164,7 @@ class _ContinuousAdjoint(AbstractAdjoint):
 
     def run(self, f, y0, t0, t1, args, ts_save, solver, controller, rtol, atol,
             dt0, max_steps, tstops=None):
-        leaves, build = tree_flatten(args)
-        # the backward pass integrates the args' cotangents as part of the
-        # adjoint state, so every leaf must be floating point
-        bad = [f"leaf {i} (dtype {leaf.dtype})" for i, leaf in enumerate(leaves)
-               if not leaf.is_floating_point()]
-        if bad:
-            raise TypeError(
-                f"{type(self).__name__} requires problem.args to be a pytree "
-                f"of floating-point tensors, but got: {', '.join(bad)}. Cast "
-                f"the leaves to float, or move static integer configuration "
-                f"into the RHS closure, or use DiscreteAdjoint (which "
-                f"differentiates through the stepper and leaves non-float "
-                f"args alone).")
+        leaves, build = _float_args(args, y0, type(self).__name__)
         spec = _Spec(f, solver, controller, rtol, atol, dt0, max_steps, self, build)
         # the span ends as tensors (float64 holds a Python float exactly), so
         # vmap can batch them

@@ -40,9 +40,9 @@ import torch
 
 import universal_differential_equations_torch as ude
 from universal_differential_equations_torch import sindy as sd
-from universal_differential_equations_torch.examples.lv_scenario_1 import _card
 from universal_differential_equations_torch.flatten_util import ravel_pytree
 from universal_differential_equations_torch.nn import Chain, Dense
+from universal_differential_equations_torch.utils import card_name
 
 F32, F64 = torch.float32, torch.float64
 DATA = (Path(__file__).resolve().parents[2] / "examples" / "lotka_volterra" / "data"
@@ -325,7 +325,7 @@ def main(quick=False, device="cuda"):
     lap("extrapolation")
     gates = dict(terms=int(nn_res.parameters().size) >= 2, refit=a["refit_loss"] < 0.2,
                  extrapolation=done and finite and amp < 10.0, fit=a["fit_loss"] < 0.1)
-    out = dict(device=_card(device), quick=quick, walls=walls, total_s=sum(walls.values()),
+    out = dict(device=card_name(device), quick=quick, walls=walls, total_s=sum(walls.values()),
                attempts=attempts, seed=a["seed"], fit_loss=a["fit_loss"],
                refit_loss=a["refit_loss"], k_sel=a["k_sel"], postfit_loss=float(rfit.loss),
                amplitude=amp, equations=nn_res.equations(), gates=gates)

@@ -27,7 +27,6 @@ import argparse
 import dataclasses
 import itertools
 import json
-import subprocess
 import time
 
 import numpy as np
@@ -37,20 +36,12 @@ import universal_differential_equations_torch as ude
 from universal_differential_equations_torch import sindy as sd
 from universal_differential_equations_torch.core.integrate import integrate_fixed
 from universal_differential_equations_torch.models import lotka_volterra as lv
+from universal_differential_equations_torch.utils import card_name
 
 F32, F64 = torch.float32, torch.float64
 SEED = 1234  # the reference's PRNGKey(1234)
 SUB = 4  # fixed Tsit5 substeps per save interval in the refit judge
 LAMS = tuple(10.0 ** e for e in np.arange(-3.0, 5.0, 0.05))  # exp10.(-3:5)
-
-
-def _card(device):
-    if device.type != "cuda":
-        return f"cpu ({torch.get_num_threads()} threads)"
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout
-    return out.strip().splitlines()[0]
 
 
 def stopwatch(device):
@@ -328,7 +319,7 @@ def main(quick=False, device="cuda"):
         raise RuntimeError(f"scenario 1 gate failed: finite={finite}, coef_err={coef_err}, "
                            f"period_err={period_err}")
     return dict(
-        device=_card(device), quick=quick, walls=walls, total_s=sum(walls.values()),
+        device=card_name(device), quick=quick, walls=walls, total_s=sum(walls.values()),
         adam_loss=res1.final_loss, bfgs_loss=float(res2.value),
         bfgs_iterations=int(res2.iterations), bfgs_evals=int(res2.num_evals),
         pairs=len(pairs), judged=len(short), equations=res_sindy.equations(),

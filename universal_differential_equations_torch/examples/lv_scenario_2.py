@@ -34,9 +34,10 @@ import torch
 
 import universal_differential_equations_torch as ude
 from universal_differential_equations_torch import sindy as sd
-from universal_differential_equations_torch.examples.lv_scenario_1 import _card, stopwatch
+from universal_differential_equations_torch.examples.lv_scenario_1 import stopwatch
 from universal_differential_equations_torch.flatten_util import ravel_pytree
 from universal_differential_equations_torch.models import lotka_volterra as lv
+from universal_differential_equations_torch.utils import card_name
 
 F32 = torch.float32
 SEED = 2222  # the reference's PRNGKey(2222)
@@ -172,7 +173,7 @@ def main(quick=False, device="cuda"):
     lap("sindy")
     gates = dict(delta=abs(delta - float(lv.P_TRUE[3])) < 0.3,
                  xy=all("u1*u2" in g for g in got))
-    out = dict(device=_card(device), quick=quick, walls=walls, total_s=sum(walls.values()),
+    out = dict(device=card_name(device), quick=quick, walls=walls, total_s=sum(walls.values()),
                adam_loss=r1.final_loss, lm_loss=float(r2.loss), lm_iterations=r2.iterations,
                lm_s_per_iteration=float(np.median(lm_walls)) if lm_walls else None,
                delta=delta, equations=res.equations(), gates=gates)

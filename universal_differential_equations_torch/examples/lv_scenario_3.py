@@ -33,10 +33,11 @@ import torch
 
 import universal_differential_equations_torch as ude
 from universal_differential_equations_torch import sindy as sd
-from universal_differential_equations_torch.examples.lv_scenario_1 import _card, stopwatch
+from universal_differential_equations_torch.examples.lv_scenario_1 import stopwatch
 from universal_differential_equations_torch.flatten_util import ravel_pytree
 from universal_differential_equations_torch.models import fisher_kpp as fk
 from universal_differential_equations_torch.nn import MLP
+from universal_differential_equations_torch.utils import card_name
 
 F32 = torch.float32
 SEED = 3  # the JAX script's PRNGKey(3)
@@ -154,7 +155,7 @@ def main(quick=False, device="cuda"):
           "(true reaction peak 0.25)")
     lap("sindy")
     gates = dict(loss=loss < 0.05, reaction=ferr < 0.08)
-    out = dict(device=_card(device), quick=quick, walls=walls, total_s=sum(walls.values()),
+    out = dict(device=card_name(device), quick=quick, walls=walls, total_s=sum(walls.values()),
                rounds=rounds, loss=loss, equations=rec.equations("dr"), func_err=ferr,
                gates=gates)
     if not all(gates.values()):

@@ -41,10 +41,10 @@ import torch
 import universal_differential_equations_torch as ude
 from universal_differential_equations_torch import sindy as sd
 from universal_differential_equations_torch.examples.hudson_bay import cast
-from universal_differential_equations_torch.examples.lv_scenario_1 import _card, stopwatch
+from universal_differential_equations_torch.examples.lv_scenario_1 import stopwatch
 from universal_differential_equations_torch.flatten_util import ravel_pytree
 from universal_differential_equations_torch.models import seir
-from universal_differential_equations_torch.utils import rescale_problem
+from universal_differential_equations_torch.utils import card_name, rescale_problem
 
 F32, F64 = torch.float32, torch.float64
 # E, I, R, D, C live ~5 decades below S, N after population normalization;
@@ -372,7 +372,7 @@ def main(quick=False, device="cuda"):
     rhs_ude, net, p_ude, expo = exposure_ude_arm(ts, data, quick, device)
     lap("train_exposure_ude")
     out = recovery_arms(rhs_ude, net, p_ude, ts, data, lap)
-    out = dict(device=_card(device), quick=quick, walls=walls, total_s=sum(walls.values()),
+    out = dict(device=card_name(device), quick=quick, walls=walls, total_s=sum(walls.values()),
                neural_ode=node, exposure_ude=expo, **out, gates=gates(out, quick))
     if not all(out["gates"].values()):
         print(json.dumps(out), flush=True)

@@ -13,45 +13,42 @@ from typing import Any, Callable, List, Tuple
 
 import torch
 
-__all__ = ["ravel_pytree", "tree_flatten"]
+__all__ = ["ravel_pytree", "tree_flatten", "tree_flatten_with_path"]
 
 
-def tree_flatten(tree) -> Tuple[List[torch.Tensor], Callable[[List], Any]]:
-    """``(leaves, build)``: the tree's tensors in JAX order, and a function
-    that rebuilds a tree of the same structure from a list of leaves."""
-    if isinstance(tree, dict):
-        keys = sorted(tree)
-        parts = [tree_flatten(tree[k]) for k in keys]
-        leaves = [leaf for p in parts for leaf in p[0]]
+def tree_flatten_with_path(tree, path: str = ""):
+    """``(pairs, build)``: ``pairs`` lists ``(path, leaf)`` in JAX order, with
+    ``path`` spelled as ``jax.tree_util.keystr`` spells it (``['rx'][0]['w']``),
+    and ``build`` rebuilds a tree of the same structure from a list of
+    leaves.  A leaf is anything that is not a dict, list, tuple or None; no
+    leaf is checked, so callers can name the ones they refuse."""
+    if isinstance(tree, (dict, list, tuple)):
+        keys = sorted(tree) if isinstance(tree, dict) else range(len(tree))
+        parts = [tree_flatten_with_path(tree[k], f"{path}[{k!r}]") for k in keys]
+        pairs = [pair for p in parts for pair in p[0]]
         sizes = [len(p[0]) for p in parts]
-
-        def build(xs):
-            out, i = {}, 0
-            for k, (_, b), n in zip(keys, parts, sizes):
-                out[k] = b(xs[i:i + n])
-                i += n
-            return out
-
-        return leaves, build
-    if isinstance(tree, (list, tuple)):
-        parts = [tree_flatten(t) for t in tree]
-        leaves = [leaf for p in parts for leaf in p[0]]
-        sizes = [len(p[0]) for p in parts]
-        kind = type(tree)
 
         def build(xs):
             out, i = [], 0
             for (_, b), n in zip(parts, sizes):
                 out.append(b(xs[i:i + n]))
                 i += n
-            return kind(out)
+            return dict(zip(keys, out)) if isinstance(tree, dict) else type(tree)(out)
 
-        return leaves, build
+        return pairs, build
     if tree is None:
         return [], lambda xs: None
-    if not isinstance(tree, torch.Tensor):
-        raise TypeError(f"pytree leaf must be a tensor, got {type(tree).__name__}")
-    return [tree], lambda xs: xs[0]
+    return [(path, tree)], lambda xs: xs[0]
+
+
+def tree_flatten(tree) -> Tuple[List[torch.Tensor], Callable[[List], Any]]:
+    """``(leaves, build)``: the tree's tensors in JAX order, and a function
+    that rebuilds a tree of the same structure from a list of leaves."""
+    pairs, build = tree_flatten_with_path(tree)
+    for _, leaf in pairs:
+        if not isinstance(leaf, torch.Tensor):
+            raise TypeError(f"pytree leaf must be a tensor, got {type(leaf).__name__}")
+    return [leaf for _, leaf in pairs], build
 
 
 def ravel_pytree(tree):

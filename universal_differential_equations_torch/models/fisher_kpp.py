@@ -18,8 +18,8 @@ import torch
 from ..nn.layers import MLP, FourierBasis
 from ..ops.stencil import FusedUpdetRHS
 
-__all__ = ["NX", "generate_data", "make_model", "true_rhs", "periodic_laplacian",
-           "rho0", "zero_sum_penalty"]
+__all__ = ["NX", "generate_data", "make_model", "make_residuals", "true_rhs",
+           "periodic_laplacian", "rho0", "zero_sum_penalty"]
 
 D_TRUE = 0.01
 R_TRUE = 1.0
@@ -141,3 +141,27 @@ def zero_sum_penalty(params, weight: float = 100.0):
     smooth form ``10⁴·(Σw)²`` the JAX package uses."""
     s = torch.sum(params["w"])
     return weight * weight * s * s
+
+
+def make_residuals(rhs, ts, data):
+    """The LM residuals of the case study and the benchmark: the solve's
+    states minus the data on the save grid, and the zero-sum penalty's square
+    root as one more row."""
+    from ..adjoint.sensitivity import ForwardSensitivity
+    from ..api import solve
+    from ..core.problem import ODEProblem
+    from ..solvers.runge_kutta import Tsit5
+
+    def residuals(p):
+        sol = solve(
+            ODEProblem(rhs, data[0], (0.0, T_END), p), Tsit5(),
+            saveat=ts, rtol=1e-4, atol=1e-6,
+            adjoint=ForwardSensitivity(), max_steps=192,
+        )
+        pen = torch.sqrt(zero_sum_penalty(p) + 1e-30)
+        r = torch.cat([(sol.ys - data).reshape(-1), pen[None]])
+        # unstable candidates that exhaust max_steps give inf residuals, so
+        # the optimizer rejects them instead of fitting a clamped tail
+        return torch.where(sol.success, r, torch.inf)
+
+    return residuals

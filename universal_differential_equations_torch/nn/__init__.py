@@ -1,3 +1,3 @@
-from .layers import MLP, Chain, Dense, FourierBasis, TensorLayer, rbf
+from .layers import MLP, Chain, Dense, FourierBasis, StencilConv1D, TensorLayer, rbf
 
-__all__ = ["Chain", "Dense", "MLP", "FourierBasis", "TensorLayer", "rbf"]
+__all__ = ["Chain", "Dense", "MLP", "FourierBasis", "StencilConv1D", "TensorLayer", "rbf"]

@@ -20,7 +20,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rbf", "Dense", "Chain", "MLP", "FourierBasis", "TensorLayer"]
+__all__ = ["rbf", "Dense", "Chain", "MLP", "StencilConv1D", "FourierBasis", "TensorLayer"]
 
 
 def rbf(x):
@@ -117,6 +117,34 @@ def MLP(sizes: Sequence[int], activation="rbf", final_activation="identity"):
         act = activation if i < len(sizes) - 2 else final_activation
         layers.append(Dense(sizes[i], sizes[i + 1], act))
     return Chain(tuple(layers))
+
+
+@dataclasses.dataclass(frozen=True)
+class StencilConv1D:
+    """Learnable k-tap 1-D convolution stencil with periodic wrap.
+
+    The reference's "CNN": an explicit 3-tap periodic stencil for learned
+    diffusion (``Fisher-KPP-CNN.jl:111-126``, ``scenario_3.jl:104-110``), as
+    a sum of ``torch.roll`` shifts along the last axis:
+    ``out[i] = Σ_k w[k]·x[i − taps//2 + k]``.
+    """
+
+    taps: int = 3
+
+    def init(self, generator, dtype=torch.float32, device=None):
+        w = torch.randn((self.taps,), generator=generator, dtype=torch.float64) * 0.1
+        return {"w": _place(w, dtype, device)}
+
+    def apply(self, params, x):
+        w = params["w"]
+        half = self.taps // 2
+        out = torch.zeros_like(x)
+        for i in range(self.taps):
+            out = out + w[i] * torch.roll(x, half - i, dims=-1)
+        return out
+
+    def __call__(self, params, x):
+        return self.apply(params, x)
 
 
 @dataclasses.dataclass(frozen=True)

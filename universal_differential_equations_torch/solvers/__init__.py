@@ -1,4 +1,5 @@
-from .runge_kutta import AbstractERK, Tsit5
+from .runge_kutta import AbstractERK, Bosh3, Dopri5, Euler, Heun, Tsit5, Vern7
 from .tableaus import TABLEAUS, ButcherTableau
 
-__all__ = ["AbstractERK", "Tsit5", "TABLEAUS", "ButcherTableau"]
+__all__ = ["AbstractERK", "Tsit5", "Vern7", "Dopri5", "Bosh3", "Euler", "Heun", "TABLEAUS",
+           "ButcherTableau"]

@@ -1,4 +1,5 @@
-"""Explicit Runge-Kutta solvers as static step objects: Tsit5 and Vern7.
+"""Explicit Runge-Kutta solvers as static step objects: Tsit5, Vern7, Dopri5,
+Bosh3, Euler and Heun.
 
 Port of ``universal_differential_equations_tpu/solvers/runge_kutta.py``.  The
 stage loop is unrolled in Python over the tableau's static coefficients; every
@@ -9,7 +10,7 @@ solver-agnostic:
     y1, y_err, f1, nfe = solver.step(f, t, y, f0, dt, args)
 
 where ``f0 = f(t, y, args)`` is carried between steps (free for FSAL methods).
-A non-FSAL tableau (Vern7) pays one more RHS evaluation per attempt for
+A non-FSAL tableau (Vern7, Euler, Heun) pays one more RHS evaluation per attempt for
 ``f1`` and counts it in ``nfe``.
 """
 from __future__ import annotations
@@ -18,7 +19,7 @@ import dataclasses
 
 from .tableaus import TABLEAUS, ButcherTableau
 
-__all__ = ["AbstractERK", "Tsit5", "Vern7"]
+__all__ = ["AbstractERK", "Tsit5", "Vern7", "Dopri5", "Bosh3", "Euler", "Heun"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +35,10 @@ class AbstractERK:
     @property
     def error_order(self):
         return self.tableau.error_order
+
+    @property
+    def name(self):
+        return self.tableau.name
 
     @property
     def dense_nodes(self):
@@ -77,18 +82,18 @@ class AbstractERK:
         return y1, y_err, f1, nfe
 
 
-@dataclasses.dataclass(frozen=True, init=False)
-class Tsit5(AbstractERK):
-    """Tsitouras 5(4) — the reference's workhorse (``scenario_1.jl:191``)."""
-
+def _make(name, doc):
     def __init__(self):
-        AbstractERK.__init__(self, TABLEAUS["Tsit5"])
+        AbstractERK.__init__(self, TABLEAUS[name])
+
+    cls = type(name, (AbstractERK,), {"__init__": __init__, "__doc__": doc})
+    return dataclasses.dataclass(frozen=True, init=False)(cls)
 
 
-@dataclasses.dataclass(frozen=True, init=False)
-class Vern7(AbstractERK):
-    """Verner 'most efficient' 7(6), not FSAL — truth generation at 1e-12
-    tolerances (``scenario_1.jl:41``)."""
-
-    def __init__(self):
-        AbstractERK.__init__(self, TABLEAUS["Vern7"])
+Tsit5 = _make("Tsit5", "Tsitouras 5(4) — the reference's workhorse (``scenario_1.jl:191``).")
+Vern7 = _make("Vern7", "Verner 'most efficient' 7(6), not FSAL — truth generation at 1e-12 "
+              "tolerances (``scenario_1.jl:41``).")
+Dopri5 = _make("Dopri5", "Dormand–Prince 5(4).")
+Bosh3 = _make("Bosh3", "Bogacki–Shampine 3(2).")
+Euler = _make("Euler", "Explicit Euler (fixed-step use only).")
+Heun = _make("Heun", "Heun 2(1) trapezoidal.")

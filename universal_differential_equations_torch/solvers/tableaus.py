@@ -1,11 +1,12 @@
-"""Butcher tableaus for the explicit Runge-Kutta family: Tsit5 and Vern7.
+"""Butcher tableaus for the explicit Runge-Kutta family: Tsit5, Dopri5, Bosh3,
+Vern7, Euler and Heun.
 
-A verbatim copy of the Tsit5 and Vern7 tables in
+A verbatim copy of the tables in
 ``universal_differential_equations_tpu/solvers/tableaus.py``.  The JAX file
 itself imports no JAX, but importing it through its package runs that
-package's ``__init__``, which imports ``jax``; the port must not.  A CPU test
-(``tests/test_torch_solve.py``) checks the tables are equal digit for
-digit.
+package's ``__init__``, which imports ``jax``; the port must not.  CPU tests
+(``tests/test_torch_solve.py``, ``tests/test_torch_surface.py``) check the
+tables are equal digit for digit.
 
 A tableau is a static (hashable) container of Python float tuples; the RK
 stepper reads its coefficients as Python scalars.
@@ -88,6 +89,50 @@ _TSIT5 = ButcherTableau(
         -0.45808210592918697,
         0.015151515151515152,
     ),
+    fsal=True,
+)
+
+# ---------------------------------------------------------------------------
+# Dormand–Prince 5(4) ("RK45").  FSAL.
+# ---------------------------------------------------------------------------
+_DOPRI5 = ButcherTableau(
+    name="Dopri5",
+    order=5,
+    error_order=5,
+    c=(0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0, 1.0),
+    a=(
+        (),
+        (1 / 5,),
+        (3 / 40, 9 / 40),
+        (44 / 45, -56 / 15, 32 / 9),
+        (19372 / 6561, -25360 / 2187, 64448 / 6561, -212 / 729),
+        (9017 / 3168, -355 / 33, 46732 / 5247, 49 / 176, -5103 / 18656),
+        (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84),
+    ),
+    b=(35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0.0),
+    b_err=(
+        35 / 384 - 5179 / 57600,
+        0.0,
+        500 / 1113 - 7571 / 16695,
+        125 / 192 - 393 / 640,
+        -2187 / 6784 + 92097 / 339200,
+        11 / 84 - 187 / 2100,
+        -1 / 40,
+    ),
+    fsal=True,
+)
+
+# ---------------------------------------------------------------------------
+# Bogacki–Shampine 3(2).  FSAL.
+# ---------------------------------------------------------------------------
+_BOSH3 = ButcherTableau(
+    name="Bosh3",
+    order=3,
+    error_order=3,
+    c=(0.0, 1 / 2, 3 / 4, 1.0),
+    a=((), (1 / 2,), (0.0, 3 / 4), (2 / 9, 1 / 3, 4 / 9)),
+    b=(2 / 9, 1 / 3, 4 / 9, 0.0),
+    b_err=(2 / 9 - 7 / 24, 1 / 3 - 1 / 4, 4 / 9 - 1 / 3, -1 / 8),
     fsal=True,
 )
 
@@ -195,4 +240,22 @@ _VERN7 = ButcherTableau(
     fsal=False,
 )
 
-TABLEAUS = {t.name: t for t in (_TSIT5, _VERN7)}
+# ---------------------------------------------------------------------------
+# Fixed-step helpers (also used by the SDE drift and shooting warmups).
+# ---------------------------------------------------------------------------
+_EULER = ButcherTableau(
+    name="Euler", order=1, error_order=2, c=(0.0,), a=((),), b=(1.0,), b_err=(0.0,)
+)
+_HEUN = ButcherTableau(
+    name="Heun",
+    order=2,
+    error_order=2,
+    c=(0.0, 1.0),
+    a=((), (1.0,)),
+    b=(0.5, 0.5),
+    b_err=(-0.5, 0.5),
+)
+
+TABLEAUS = {
+    t.name: t for t in (_TSIT5, _DOPRI5, _BOSH3, _VERN7, _EULER, _HEUN)
+}

@@ -1,18 +1,31 @@
-"""Problem utilities.
+"""Problem and device utilities.
 
-Port of ``rescale_problem`` from ``universal_differential_equations_tpu/utils``.
+Port of ``rescale_problem`` from ``universal_differential_equations_tpu/utils``,
+and ``card_name``, the device line that the pipelines and the benchmark print.
 The rest of that module (device probes, the XLA compilation cache) serves the
 TPU and has no counterpart here.
 """
 from __future__ import annotations
 
 import dataclasses
+import subprocess
 
 import torch
 
 from ..flatten_util import tree_flatten
 
-__all__ = ["rescale_problem"]
+__all__ = ["card_name", "rescale_problem"]
+
+
+def card_name(device):
+    """The card's name and power limit as ``nvidia-smi`` prints them, or the
+    CPU's thread count when ``device`` is not a CUDA device."""
+    if device.type != "cuda":
+        return f"cpu ({torch.get_num_threads()} threads)"
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
 
 
 def _leaves_like(tree, other):
