@@ -63,13 +63,14 @@ from .train import (
     fit,
     fit_bfgs,
     levenberg_marquardt,
+    levenberg_marquardt_lanes,
     multiple_shoot,
     reduce_on_plateau,
     shooting_windows,
 )
 from .io.checkpoint import BestCheckpoint, KeyedArchive, load_pytree, save_pytree
 from .models.neural_ode import NeuralODE, neural_ode
-from .convert import params_from_jax
+from .convert import params_from_jax, theta_from_jax
 
 __version__ = "0.1.0"
 __all__ = [
@@ -79,11 +80,11 @@ __all__ = [
     "NoAdjoint", "DiscreteAdjoint", "ForwardSensitivity",
     "InterpolatingAdjoint", "BacksolveAdjoint", "QuadratureAdjoint",
     "Chain", "Dense", "MLP", "FourierBasis", "StencilConv1D", "TensorLayer", "rbf",
-    "levenberg_marquardt", "LMResult",
+    "levenberg_marquardt", "levenberg_marquardt_lanes", "LMResult",
     "fit", "fit_bfgs", "FitResult", "reduce_on_plateau",
     "bfgs_minimize", "bfgs_minimize_lanes", "BFGSResult",
     "multiple_shoot", "shooting_windows",
     "BestCheckpoint", "KeyedArchive", "save_pytree", "load_pytree",
     "NeuralODE", "neural_ode",
-    "params_from_jax",
+    "params_from_jax", "theta_from_jax",
 ]

@@ -444,11 +444,10 @@ def _refit_lm(simulate, data, C0, mask, iters, w_train=None):
         r = simulate(x.reshape(F, *shape) * mask) - data
         return (r if w_train is None else w_train * r).reshape(F, -1)
 
+    from ..train.lm import lane_jacobian  # train is a sibling layer
+
     def jac(x):
-        # lane f's residuals depend on x[f] only: one shift v of every lane
-        # at once gives each lane's Jacobian column, n tangents in all
-        return torch.func.jacfwd(lambda v: r_flat(x + v))(torch.zeros_like(x[0])) \
-            * mflat[:, None, :]
+        return lane_jacobian(r_flat, x) * mflat[:, None, :]
 
     x = C0.reshape(F, -1)
     r = r_flat(x)

@@ -13,8 +13,9 @@ semantics of ``jax.vmap(bfgs_minimize)``, whose batched ``while_loop`` runs
 the body for every lane and keeps finished lanes fixed.  ``bfgs_minimize``
 runs one lane over a pytree of parameters; ``bfgs_minimize_lanes`` runs
 ``L`` independent problems whose loss returns an ``(L,)`` vector (lanes are
-independent, so the gradient of its sum is each lane's gradient).  The host
-reads one flag per line-search evaluation to decide whether to go on.
+independent, so the gradient of its sum is each lane's gradient).  Each
+evaluation serves every lane at its own point, and the host reads one flag
+per evaluation to decide whether to go on.
 """
 from __future__ import annotations
 
@@ -37,91 +38,118 @@ class BFGSResult(NamedTuple):
     loss_history: torch.Tensor  # (maxiters,), +inf past convergence
 
 
-def _wolfe_line_search(fg, x, p, f0, g0, alpha0, active, c1=1e-4, c2=0.9, maxiter=25):
-    """Strong-Wolfe line search per lane.  Returns (alpha, f, g, nfev, ok).
+_C1, _C2, _LS_MAXITER = 1e-4, 0.9, 25  # strong-Wolfe constants and trial budget
 
-    ``active`` lanes search; the others start finished.
-    """
-    dg0 = (g0 * p).sum(-1)
-    zeros = torch.zeros_like(f0)
-    i = torch.zeros(f0.shape, dtype=torch.int32, device=f0.device)
-    stage = torch.where(active, 0, 2).to(torch.int32)  # 0 bracket, 1 zoom, 2 done
-    a_prev, f_prev, dg_prev = zeros, f0, dg0
-    a_cur = torch.full_like(f0, alpha0)
-    a_lo, f_lo, dg_lo, a_hi = zeros, f0, dg0, zeros
-    star_a, star_f, star_g = zeros, f0, g0
-    nfev = torch.zeros_like(i)
 
-    while True:
-        run = (stage < 2) & (i < maxiter)
-        if not bool(run.any()):
-            break
-        a = torch.where(stage == 0, a_cur, 0.5 * (a_lo + a_hi))
-        f, g = fg(x + a[:, None] * p)
+class _Search:
+    """Per-lane strong-Wolfe line-search state (Nocedal & Wright Alg. 3.5/3.6):
+    ``stage`` 0 brackets, 1 zooms, 2 is done; ``i`` counts trials."""
+
+    def __init__(self, f0, g0, p, alpha0):
+        zeros = torch.zeros_like(f0)
+        self.p, self.f0, self.g0 = p, f0, g0
+        self.dg0 = (g0 * p).sum(-1)
+        self.i = torch.zeros(f0.shape, dtype=torch.int32, device=f0.device)
+        self.stage = torch.zeros_like(self.i)
+        self.a_prev, self.f_prev, self.dg_prev = zeros, f0, self.dg0
+        self.a_cur = torch.full_like(f0, alpha0)
+        self.a_lo, self.f_lo, self.dg_lo, self.a_hi = zeros, f0, self.dg0, zeros
+        self.star_a, self.star_f, self.star_g = zeros, f0, g0
+
+    def restart(self, new, other):
+        """Lanes where ``new`` holds take ``other``'s state (a fresh search)."""
+        for name, val in list(vars(self).items()):
+            nv = getattr(other, name)
+            m = new.reshape(new.shape + (1,) * (val.ndim - 1))
+            setattr(self, name, torch.where(m, nv, val))
+
+    def trial(self):
+        return torch.where(self.stage == 0, self.a_cur, 0.5 * (self.a_lo + self.a_hi))
+
+    def update(self, run, a, f, g):
+        """Advance the lanes in ``run`` by their evaluation ``(f, g)`` at ``a``."""
+        p, f0, dg0 = self.p, self.f0, self.dg0
         dg = (g * p).sum(-1)
-        armijo_fail = f > f0 + c1 * a * dg0
-        curv_ok = dg.abs() <= -c2 * dg0
+        armijo_fail = f > f0 + _C1 * a * dg0
+        curv_ok = dg.abs() <= -_C2 * dg0
+        i = self.i
 
         # bracket stage
-        hi_found = armijo_fail | ((f >= f_prev) & (i > 0))
+        hi_found = armijo_fail | ((f >= self.f_prev) & (i > 0))
         to_done = ~hi_found & curv_ok
         to_rev = ~hi_found & ~curv_ok & (dg >= 0)
         b_stage = torch.where(to_done, 2, torch.where(hi_found | to_rev, 1, 0))
-        b_a_lo = torch.where(hi_found, a_prev, torch.where(to_rev, a, a_lo))
-        b_f_lo = torch.where(hi_found, f_prev, torch.where(to_rev, f, f_lo))
-        b_dg_lo = torch.where(hi_found, dg_prev, torch.where(to_rev, dg, dg_lo))
-        b_a_hi = torch.where(hi_found, a, torch.where(to_rev, a_prev, a_hi))
-        b_star = to_done
+        b_a_lo = torch.where(hi_found, self.a_prev, torch.where(to_rev, a, self.a_lo))
+        b_f_lo = torch.where(hi_found, self.f_prev, torch.where(to_rev, f, self.f_lo))
+        b_dg_lo = torch.where(hi_found, self.dg_prev, torch.where(to_rev, dg, self.dg_lo))
+        b_a_hi = torch.where(hi_found, a, torch.where(to_rev, self.a_prev, self.a_hi))
 
         # zoom stage
-        shrink_hi = armijo_fail | (f >= f_lo)
+        shrink_hi = armijo_fail | (f >= self.f_lo)
         z_done = ~shrink_hi & curv_ok
-        flip = ~shrink_hi & ~curv_ok & (dg * (a_hi - a_lo) >= 0)
+        flip = ~shrink_hi & ~curv_ok & (dg * (self.a_hi - self.a_lo) >= 0)
         new_lo = ~shrink_hi & ~z_done
         z_stage = torch.where(z_done, 2, 1)
-        z_a_hi = torch.where(shrink_hi, a, torch.where(flip, a_lo, a_hi))
-        z_a_lo = torch.where(new_lo, a, a_lo)
-        z_f_lo = torch.where(new_lo, f, f_lo)
-        z_dg_lo = torch.where(new_lo, dg, dg_lo)
+        z_a_hi = torch.where(shrink_hi, a, torch.where(flip, self.a_lo, self.a_hi))
+        z_a_lo = torch.where(new_lo, a, self.a_lo)
+        z_f_lo = torch.where(new_lo, f, self.f_lo)
+        z_dg_lo = torch.where(new_lo, dg, self.dg_lo)
         # keep the best Armijo point in case zoom exhausts its budget
-        z_star = z_done | (~z_done & (f < star_f) & ~armijo_fail)
+        z_star = z_done | (~z_done & (f < self.star_f) & ~armijo_fail)
 
-        br = stage == 0
+        br = self.stage == 0
         upd = lambda b, z, old: torch.where(run, torch.where(br, b, z), old)  # noqa: E731
-        take = run & torch.where(br, b_star, z_star)
-        stage = upd(b_stage, z_stage, stage).to(torch.int32)
-        a_lo, f_lo, dg_lo, a_hi = (upd(b_a_lo, z_a_lo, a_lo), upd(b_f_lo, z_f_lo, f_lo),
-                                   upd(b_dg_lo, z_dg_lo, dg_lo), upd(b_a_hi, z_a_hi, a_hi))
+        take = run & torch.where(br, to_done, z_star)
+        self.stage = upd(b_stage, z_stage, self.stage).to(torch.int32)
+        self.a_lo, self.f_lo = upd(b_a_lo, z_a_lo, self.a_lo), upd(b_f_lo, z_f_lo, self.f_lo)
+        self.dg_lo, self.a_hi = upd(b_dg_lo, z_dg_lo, self.dg_lo), upd(b_a_hi, z_a_hi, self.a_hi)
         # only the bracket stage moves the previous point and the next trial
-        a_prev, f_prev, dg_prev, a_cur = (upd(a, a_prev, a_prev), upd(f, f_prev, f_prev),
-                                          upd(dg, dg_prev, dg_prev), upd(2.0 * a, a_cur, a_cur))
-        star_a = torch.where(take, a, star_a)
-        star_f = torch.where(take, f, star_f)
-        star_g = torch.where(take[:, None], g, star_g)
-        i = i + run.to(torch.int32)
-        nfev = nfev + run.to(torch.int32)
+        self.a_prev = upd(a, self.a_prev, self.a_prev)
+        self.f_prev = upd(f, self.f_prev, self.f_prev)
+        self.dg_prev = upd(dg, self.dg_prev, self.dg_prev)
+        self.a_cur = upd(2.0 * a, self.a_cur, self.a_cur)
+        self.star_a = torch.where(take, a, self.star_a)
+        self.star_f = torch.where(take, f, self.star_f)
+        self.star_g = torch.where(take[:, None], g, self.star_g)
+        self.i = i + run.to(torch.int32)
 
-    ok = stage == 2
-    found = ok | (star_a > 0)
-    # when the search exhausted its budget without satisfying Wolfe: the best
-    # Armijo point found, or a_lo
-    alpha = torch.where(found, star_a, a_lo)
-    return alpha, star_f, star_g, nfev, found
+    def ended(self):
+        return (self.stage == 2) | (self.i >= _LS_MAXITER)
+
+    def result(self):
+        """``(alpha, f, g, ok)``: the Wolfe point; when the budget ran out
+        without one, the best Armijo point found, or ``a_lo``."""
+        found = (self.stage == 2) | (self.star_a > 0)
+        return torch.where(found, self.star_a, self.a_lo), self.star_f, self.star_g, found
 
 
-def _bfgs_lanes(fun, x0, maxiters, gtol, ftol, initial_stepnorm, allow_f_increases):
-    """The BFGS loop over ``x0`` of shape ``(L, n)``; ``fun`` maps (L, n) → (L,)."""
+def _bfgs_lanes(fun, x0, maxiters, gtol, ftol, initial_stepnorm, allow_f_increases,
+                value_and_grad=False):
+    """The BFGS loop over ``x0`` of shape ``(L, n)``; ``fun`` maps (L, n) → (L,)
+    (or to ``(values, gradients)`` with ``value_and_grad``).
+
+    Each lane runs its own iterations and line searches, and each evaluation
+    of ``fun`` serves every lane at its own trial point: a lane whose line
+    search ends starts its next iteration on the next evaluation instead of
+    waiting for the other lanes' searches.  A lane's arithmetic is what
+    ``jax.vmap(bfgs_minimize)`` does for it; the evaluations of the batch
+    are the most any lane needs in all, not the sum over iterations of the
+    most any lane needs in that iteration.
+    """
     dtype, device = x0.dtype, x0.device
     L, n = x0.shape
 
     def fg(x):
-        with torch.enable_grad():
-            x = x.detach().requires_grad_(True)
-            f = fun(x)
-            (g,) = torch.autograd.grad(f.sum(), x)
+        if value_and_grad:
+            f, g = fun(x.detach())
+        else:
+            with torch.enable_grad():
+                x = x.detach().requires_grad_(True)
+                f = fun(x)
+                (g,) = torch.autograd.grad(f.sum(), x)
         # pin the loss to the parameter dtype (an f32 model's loss can promote
         # to f64 through Python time scalars)
-        return f.detach().to(dtype), g.to(dtype)
+        return f.detach().to(dtype), g.detach().to(dtype)
 
     x = x0.detach()
     f, g = fg(x)
@@ -129,16 +157,14 @@ def _bfgs_lanes(fun, x0, maxiters, gtol, ftol, initial_stepnorm, allow_f_increas
     hinv = eye.expand(L, n, n).clone()
     k = torch.zeros(L, dtype=torch.int32, device=device)
     nfev = torch.ones_like(k)
+    nfev_ls = torch.zeros_like(k)
     done = torch.zeros(L, dtype=torch.bool, device=device)
     converged = torch.zeros_like(done)
     fails = torch.zeros_like(k)
     history = torch.full((L, maxiters), float("inf"), dtype=dtype, device=device)
     slots = torch.arange(maxiters, device=device)
 
-    while True:
-        active = ~done & (k < maxiters)
-        if not bool(active.any()):
-            break
+    def direction():
         p = -(hinv @ g[:, :, None])[:, :, 0]
         # reset to steepest descent on an ascent/indefinite direction
         p = torch.where(((p * g).sum(-1) >= 0)[:, None], -g, p)
@@ -147,8 +173,19 @@ def _bfgs_lanes(fun, x0, maxiters, gtol, ftol, initial_stepnorm, allow_f_increas
             scale = torch.where(k == 0, initial_stepnorm / torch.clamp(pnorm, min=1e-30),
                                 torch.ones_like(pnorm))
             p = p * scale[:, None]
-        alpha, f_new, g_new, nfev_ls, ls_ok = _wolfe_line_search(
-            fg, x, p, f, g, 1.0, active)
+        return _Search(f, g, p, 1.0)
+
+    searching = k < maxiters
+    ls = direction()
+    while bool(searching.any()):  # the one device-to-host read per evaluation
+        a = torch.where(searching, ls.trial(), torch.zeros_like(f))
+        f_t, g_t = fg(x + a[:, None] * ls.p)
+        ls.update(searching, a, f_t, g_t)
+        nfev_ls = nfev_ls + searching.to(torch.int32)
+        fin = searching & ls.ended()
+        # the BFGS update of the lanes whose line search ended
+        alpha, f_new, g_new, ls_ok = ls.result()
+        p = ls.p
         x_new = x + alpha[:, None] * p
         sk = x_new - x
         yk = g_new - g
@@ -176,17 +213,22 @@ def _bfgs_lanes(fun, x0, maxiters, gtol, ftol, initial_stepnorm, allow_f_increas
         # a failed line search gets one retry from a reset inverse Hessian
         fails_new = torch.where(progressed, 0, fails + 1).to(torch.int32)
 
-        act, act2 = active[:, None], active[:, None, None]
-        x = torch.where(act, x_keep, x)
-        f = torch.where(active, f_keep, f)
-        g = torch.where(act, g_keep, g)
-        hinv = torch.where(act2, torch.where(progressed[:, None, None], hinv_new, eye), hinv)
-        history = torch.where(act & (slots[None, :] == k[:, None]), f_keep[:, None], history)
-        nfev = torch.where(active, nfev + nfev_ls, nfev)
-        k = torch.where(active, k + 1, k)
-        done = torch.where(active, conv | (fails_new >= 2), done)
-        converged = torch.where(active, conv, converged)
-        fails = torch.where(active, fails_new, fails)
+        f1, f2 = fin[:, None], fin[:, None, None]
+        x = torch.where(f1, x_keep, x)
+        f = torch.where(fin, f_keep, f)
+        g = torch.where(f1, g_keep, g)
+        hinv = torch.where(f2, torch.where(progressed[:, None, None], hinv_new, eye), hinv)
+        history = torch.where(f1 & (slots[None, :] == k[:, None]), f_keep[:, None], history)
+        nfev = torch.where(fin, nfev + nfev_ls, nfev)
+        nfev_ls = torch.where(fin, torch.zeros_like(nfev_ls), nfev_ls)
+        k = torch.where(fin, k + 1, k)
+        done = torch.where(fin, conv | (fails_new >= 2), done)
+        converged = torch.where(fin, conv, converged)
+        fails = torch.where(fin, fails_new, fails)
+        # those lanes start their next iteration's line search
+        nxt = fin & ~done & (k < maxiters)
+        ls.restart(nxt, direction())
+        searching = (searching & ~fin) | nxt
 
     return x, f, g, k, nfev, converged, history
 
@@ -227,19 +269,28 @@ def bfgs_minimize_lanes(
     ftol: float = 0.0,
     initial_stepnorm: float = None,
     allow_f_increases: bool = True,
+    value_and_grad: bool = False,
 ) -> BFGSResult:
     """``L`` independent minimizations at once: the counterpart of
     ``jax.vmap(bfgs_minimize)``.
 
     ``x0`` has shape ``(L, ...)``; ``fun`` maps a tensor of that shape to the
     ``(L,)`` vector of per-lane losses, and lane ``l``'s loss may depend only
-    on lane ``l`` of its input.  Every field of the result has a leading
-    lane dimension.
+    on lane ``l`` of its input.  With ``value_and_grad``, ``fun`` returns
+    ``(losses, gradients)`` itself, the gradients shaped like its input.
+    Every field of the result has a leading lane dimension.
     """
     shape = x0.shape
+    if value_and_grad:
+        def flat_fun(X):
+            f, g = fun(X.reshape(shape))
+            return f, g.reshape(shape[0], -1)
+    else:
+        def flat_fun(X):
+            return fun(X.reshape(shape))
     x, f, g, k, nfev, conv, hist = _bfgs_lanes(
-        lambda X: fun(X.reshape(shape)), x0.detach().reshape(shape[0], -1),
-        maxiters, gtol, ftol, initial_stepnorm, allow_f_increases)
+        flat_fun, x0.detach().reshape(shape[0], -1),
+        maxiters, gtol, ftol, initial_stepnorm, allow_f_increases, value_and_grad)
     return BFGSResult(
         params=x.reshape(shape), value=f, grad_norm=g.abs().amax(-1),
         iterations=k, num_evals=nfev, converged=conv, loss_history=hist,

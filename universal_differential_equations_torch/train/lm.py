@@ -9,6 +9,12 @@ logic is the JAX package's, value for value.
 
 The JAX core is one ``lax.while_loop`` on the device; here each iteration is
 host-driven and reads one flag (``done``) back from the device.
+
+:func:`levenberg_marquardt_lanes` runs ``L`` independent problems as lanes of
+one loop, the counterpart of ``jax.vmap(levenberg_marquardt)``: a finished
+lane is frozen, as ``vmap`` of ``while_loop`` freezes it, and the loop reads
+"every lane done" once per iteration.  Its Jacobians come from
+:func:`lane_jacobian`.
 """
 from __future__ import annotations
 
@@ -19,15 +25,23 @@ from torch.func import jacfwd
 
 from ..flatten_util import ravel_pytree
 
-__all__ = ["levenberg_marquardt", "LMResult"]
+__all__ = ["lane_jacobian", "levenberg_marquardt", "levenberg_marquardt_lanes", "LMResult"]
 
 
 class LMResult(NamedTuple):
     params: object
     loss: torch.Tensor  # final sum of squared residuals
-    iterations: int
+    iterations: int  # an (L,) tensor from levenberg_marquardt_lanes
     lam: torch.Tensor
-    converged: bool
+    converged: bool  # an (L,) tensor from levenberg_marquardt_lanes
+
+
+def lane_jacobian(residual_lanes: Callable, x: torch.Tensor) -> torch.Tensor:
+    """Per-lane Jacobians ``(L, m, n)`` of ``residual_lanes: (L, n) -> (L, m)``
+    at ``x``, where lane ``l``'s residuals depend on ``x[l]`` only: one shift
+    ``v`` of every lane at once gives each lane's Jacobian column, so
+    ``jacfwd`` pushes ``n`` tangents, not ``L·n``."""
+    return jacfwd(lambda v: residual_lanes(x + v))(torch.zeros_like(x[0]))
 
 
 def levenberg_marquardt(
@@ -97,3 +111,73 @@ def levenberg_marquardt(
         # iteration budget
         converged=done and int(stall) < max_stall,
     )
+
+
+def levenberg_marquardt_lanes(
+    residual_fn: Callable,
+    x0: torch.Tensor,
+    *,
+    maxiters: int = 100,
+    lam0: float = 1e-3,
+    lam_up: float = 3.0,
+    lam_down: float = 0.3,
+    gtol: float = 1e-9,
+    loss_tol: float = 0.0,
+    max_stall: int = 8,
+    jacobian_fn: Optional[Callable] = None,
+) -> LMResult:
+    """``L`` independent minimizations of ``‖r_l(x_l)‖²`` at once: the
+    counterpart of ``jax.vmap(levenberg_marquardt)``.
+
+    ``x0`` is ``(L, n)``; ``residual_fn`` maps ``(L, n)`` to the ``(L, m)``
+    residuals, lane ``l``'s depending on ``x[l]`` only; ``jacobian_fn``, if
+    given, maps ``(L, n)`` to their ``(L, m, n)`` Jacobians (default
+    :func:`lane_jacobian` of ``residual_fn``).  Each lane follows
+    :func:`levenberg_marquardt`'s rules; once done (``loss_tol``, ``gtol`` or
+    ``max_stall``) it stops changing.  The loop ends when every lane is done
+    or after ``maxiters`` iterations.  Every field of the result has a
+    leading lane dimension.
+    """
+    x = x0.detach()
+    dtype, device = x.dtype, x.device
+    L = x.shape[0]
+
+    def r_lanes(x):
+        return residual_fn(x).to(dtype)
+
+    r = r_lanes(x)
+    loss = (r * r).sum(-1)
+    lam = torch.full((L,), lam0, dtype=dtype, device=device)
+    stall = torch.zeros(L, dtype=torch.int32, device=device)
+    k = torch.zeros_like(stall)
+    done = torch.zeros(L, dtype=torch.bool, device=device)
+    for _ in range(maxiters):
+        J = (lane_jacobian(r_lanes, x) if jacobian_fn is None else jacobian_fn(x)).to(dtype)
+        g = (J.transpose(1, 2) @ r[..., None])[..., 0]
+        H = J.transpose(1, 2) @ J
+        diag = torch.clamp(torch.diagonal(H, dim1=1, dim2=2), min=1e-12)
+        A = H + lam[:, None, None] * torch.diag_embed(diag)
+        # a singular system gives inf/NaN, as jnp.linalg.solve does, and the
+        # step is then rejected
+        x_new = x - torch.linalg.solve_ex(A, g).result
+        r_new = r_lanes(x_new)
+        loss_new = (r_new * r_new).sum(-1)
+        accept = (loss_new < loss) & torch.isfinite(r_new).all(-1)
+        lam_t = torch.clamp(torch.where(accept, lam * lam_down, lam * lam_up), 1e-12, 1e12)
+        stall_t = torch.where(accept, torch.zeros_like(stall), stall + 1)
+        gnorm = g.abs().amax(-1)
+        done_t = (accept & (loss_new < loss_tol)) | (gnorm < gtol) | (stall_t >= max_stall)
+        # a finished lane is frozen, as vmap of while_loop freezes it
+        run = ~done
+        step = run & accept
+        x = torch.where(step[:, None], x_new, x)
+        r = torch.where(step[:, None], r_new, r)
+        loss = torch.where(step, loss_new, loss)
+        lam = torch.where(run, lam_t, lam)
+        stall = torch.where(run, stall_t, stall)
+        k = k + run.to(k.dtype)
+        done = done | done_t
+        if bool(done.all()):  # the one device-to-host read per iteration
+            break
+    return LMResult(params=x, loss=loss, iterations=k, lam=lam,
+                    converged=done & (stall < max_stall))
