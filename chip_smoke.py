@@ -142,6 +142,31 @@ Phases, in order; any failure raises and the script exits non-zero:
         supports, and at least 23 of 25 lanes per arm select the active sets
         the JAX study archived (``loop_study.npz``);
     (d) neither fused kernel launched.
+13. The climate case study (``examples/climate_*.py``, ``models/climate_*``,
+    the stabilized solvers), on the card against the CPU port; this path
+    runs no hand-written kernel (both counters must read 0 after it):
+    (a) ROCK4, ROCK2, RKC2 and RKC1 solves of the 32-level column's truth
+        (``getops(32)``, ``true_rhs``, t in [0, 1.5], the solvers sized as
+        the scripts size them): float64 at rtol 1e-5 with the CPU's
+        accepted/rejected/RHS counts and its save values to 1e-9 relative,
+        float32 at rtol 1e-4 within 1e-3 relative of the CPU's float32
+        solve; no accepted step longer than ``dt_stab``;
+    (b) ``climate_neural_pde`` at full width (30→8→30, 518 parameters,
+        float32): one LM iteration leaves a finite, non-rising loss; the
+        interpolating adjoint's loss and gradient, timed over 10 calls
+        (``climate_adjoint_loss_grad``; the reference's Julia run 0.879 s),
+        and in float64 equal to the CPU's to 1e-8 relative;
+    (c) one RT chunk (10 Heun/Leray steps) at 128×2×128 from a random
+        velocity state, periodic and rigid-lid, float32 within 1e-4
+        relative of the CPU's; then the step times ``rt_datagen_ms_per_step``
+        and ``rt_rigid_lid_ms_per_step`` at 128×2×128 (the reference's
+        Julia run 8.5 ms) and ``tracer_datagen_ms_per_step_128cubed``
+        (CUDA events, minimum of 5 chunks after a warm-up);
+    (d) the committed JAX checkpoint ``examples/climate/data/dbdt_nn.npz``:
+        its one-step loss over the 40 committed pairs and its 40-step
+        rollout rel-L2 on the card within 1e-4 / 2e-3 of the CPU's, and the
+        seconds per ADAM step of ``climate_training_rt``'s 40-pair vmapped
+        loss.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel with
 its bound on the card (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s float32); the
@@ -1434,6 +1459,146 @@ def phase_lv_study(device, card):
         raise AssertionError("phase 12 launched a fused RHS kernel; its paths reach none")
 
 
+def phase_climate(device, card):
+    """Phase 13: the climate case study (see the module docstring)."""
+    import numpy as np
+    import torch
+    import universal_differential_equations_torch as ude
+    from universal_differential_equations_torch.examples import climate_neural_pde as npde
+    from universal_differential_equations_torch.examples import climate_training_rt as trt
+    from universal_differential_equations_torch.io import load_pytree
+    from universal_differential_equations_torch.models import climate_datagen as dg
+    from universal_differential_equations_torch.models import climate_npde as cn
+    from universal_differential_equations_torch.ops import stencil
+
+    f32, f64, cpu = torch.float32, torch.float64, torch.device("cpu")
+    stencil.launches = stencil.tangent_launches = stencil.generic_launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    t_phase = time.perf_counter()
+
+    # (a) the four stabilized solvers on the column's truth, card against CPU
+    _, _, eig = cn.getops(32)
+    solvers = (ude.ROCK4.for_problem(eig * 1.1, (0.0, 1.5), n_steps_hint=40),
+               ude.ROCK2.for_problem(eig * 1.1, (0.0, 1.5), n_steps_hint=40),
+               ude.RKC2.for_problem(eig * 1.1, (0.0, 1.5), n_steps_hint=40),
+               ude.RKC1(stages=16, rho=eig * 1.1))
+
+    def column_solve(solver, dtype, dev, rtol):
+        D1, D2, _ = cn.getops(32, dtype=dtype, device=dev)
+        ts = torch.linspace(0.0, 1.5, 16, dtype=dtype, device=dev)
+        sol = ude.solve(ude.ODEProblem(cn.true_rhs, cn.get_u0(32, dtype, dev), (0.0, 1.5),
+                                       (D1, D2)), solver, saveat=ts, rtol=rtol,
+                        atol=rtol * 1e-2, adjoint=ude.NoAdjoint(), max_steps=8192, dense=True)
+        steps = sol.dense.ts[:int(sol.num_accepted) + 1]
+        longest = float((steps[1:] - steps[:-1]).max())
+        counts = (int(sol.num_accepted), int(sol.num_rejected), int(sol.num_rhs_evals))
+        return sol.ys.cpu(), counts, longest, bool(sol.success)
+
+    for solver in solvers:
+        t0 = time.perf_counter()
+        ys_c, n_c, longest, ok = column_solve(solver, f64, device, 1e-5)
+        wall = time.perf_counter() - t0
+        ys_p, n_p, _, _ = column_solve(solver, f64, cpu, 1e-5)
+        y32_c, n32, long32, ok32 = column_solve(solver, f32, device, 1e-4)
+        y32_p, _, _, _ = column_solve(solver, f32, cpu, 1e-4)
+        r64, r32 = _rel(ys_c, ys_p), _rel(y32_c, y32_p)
+        capped = max(longest, long32) <= solver.dt_stab * (1 + 1e-6)
+        _check(ok and ok32 and n_c == n_p and r64 <= 1e-9 and r32 <= 1e-3 and capped,
+               f"[climate a] {solver.name}: float64 accepted/rejected/RHS {n_c} (CPU {n_p}), "
+               f"rel {r64:.2e} (1e-9), {wall:.2f} s on the card; float32 {n32}, rel "
+               f"{r32:.2e} (1e-3); longest step {max(longest, long32):.5f} <= dt_stab "
+               f"{solver.dt_stab:.5f}")
+
+    # (b) the neural-PDE column at full width: one LM iteration, the adjoint timed
+    D1, D2, eig, u0, ts = npde.problem(device=device)
+    data = npde.truth(D1, D2, u0, ts)
+    rhs, params0, _ = cn.make_neural_rhs(torch.Generator().manual_seed(npde.SEED),
+                                         device=device)
+    residuals = npde.make_residuals(rhs, u0, ts, data, D1, D2)
+    l_init = float(torch.sum(residuals(params0) ** 2))
+    t0 = time.perf_counter()
+    res = ude.levenberg_marquardt(residuals, params0, maxiters=1, lam0=30.0)
+    _sync()
+    t_lm = time.perf_counter() - t0
+    l_lm = float(res.loss)
+    _check(math.isfinite(l_lm) and l_lm <= l_init,
+           f"[climate b] one LM iteration at full width (518 parameters, float32): loss "
+           f"{l_init:.5g} -> {l_lm:.5g} in {t_lm:.2f} s on {card}")
+    vg = npde.adjoint_loss(rhs, u0, ts, data, D1, D2)
+    npde.value_and_grad(vg, params0)
+    t_adj = median_s(lambda: npde.value_and_grad(vg, params0), 10)
+    cast = lambda x, dev: x.to(dtype=f64, device=dev)  # noqa: E731
+    grads = {}
+    for key, dev in (("card", device), ("cpu", cpu)):
+        p64 = [{k: cast(v, dev) for k, v in layer.items()} for layer in params0]
+        ops = [cast(x, dev) for x in (D1, D2, u0, ts, data)]
+        loss64 = npde.adjoint_loss(rhs, ops[2], ops[3], ops[4], ops[0], ops[1])
+        grads[key] = torch.cat([g.reshape(-1) for g in
+                                     npde.value_and_grad(loss64, p64)[1]]).cpu()
+    r_g = _rel(grads["card"], grads["cpu"])
+    _check(r_g <= 1e-8,
+           f"[climate b] climate_adjoint_loss_grad {t_adj:.4f} s (median of 10 calls, float32; "
+           f"the reference's Julia run 0.879 s) on {card}; float64 gradient card vs CPU "
+           f"rel {r_g:.2e} (1e-8)")
+    del grads
+
+    # (c) one RT chunk at 128x2x128, card against CPU; the step-time rows
+    rng = np.random.default_rng(13)
+    vel = [rng.standard_normal((128, 2, 128)) * 0.1 for _ in range(3)]
+    for bc in ("periodic", "rigid_lid"):
+        outs = {}
+        for key, dev in (("card", device), ("cpu", cpu)):
+            state, _, chunk, _ = dg._rt_stepper((128, 2, 128), (1.0, 2 / 128, 1.0), 1e-4, 1e-4,
+                                                1.0, 10, None, f32, bc=bc, device=dev)
+            state = tuple(torch.as_tensor(a, dtype=f32, device=dev) for a in vel) + state[3:]
+            new, umax = chunk(state, torch.tensor(1e-3, dtype=f32, device=dev))
+            outs[key] = [x.cpu() for x in new]
+        r_rt = max(_rel(a, b) for a, b in zip(outs["card"], outs["cpu"]))
+        _check(r_rt <= 1e-4 and all(bool(torch.isfinite(x).all()) for x in outs["card"]),
+               f"[climate c] one RT chunk at 128x2x128 ({bc}, float32): card vs CPU rel "
+               f"{r_rt:.2e} (1e-4)")
+    rt_ms = dg.rt_step_seconds((128, 2, 128), device=device) * 1e3
+    rigid_ms = dg.rt_step_seconds((128, 2, 128), bc="rigid_lid", device=device) * 1e3
+    tracer_ms = dg.tracer_step_seconds(128, device=device) * 1e3
+    log(f"[climate c] rt_datagen_ms_per_step {rt_ms:.4f} ms at 128x2x128 (the reference's "
+        f"Julia run 8.5 ms), rt_rigid_lid_ms_per_step {rigid_ms:.4f} ms, "
+        f"tracer_datagen_ms_per_step_128cubed {tracer_ms:.4f} ms (CUDA events, minimum of 5 "
+        f"chunks) on {card}")
+
+    # (d) the committed JAX checkpoint, card against CPU; training_rt's ADAM step
+    t, _, b = trt.load_or_generate(False, device=device)
+    _, b_cs, n_pairs = trt.coarse_pairs(t, b, 16)
+    net, prop = trt.make_model(16)
+    evals = {}
+    for key, dev in (("card", device), ("cpu", cpu)):
+        bn = torch.as_tensor(b_cs[:n_pairs], dtype=f32, device=dev)
+        bn1 = torch.as_tensor(b_cs[1:n_pairs + 1], dtype=f32, device=dev)
+        like = net.init(torch.Generator().manual_seed(0), f32, dev)
+        params = load_pytree(ROOT / "examples" / "climate" / "data" / "dbdt_nn.npz", like,
+                             device=dev)
+        loss_fn = trt.make_loss(prop, bn, bn1)
+        with torch.no_grad():
+            one_step = float(loss_fn(params))
+        rel, _ = trt.rollout_rel(prop, params, b_cs, len(b_cs) - 1)
+        evals[key] = (one_step, rel, loss_fn, params)
+    (l_c, rel_c, loss_fn, params), (l_p, rel_p, _, _) = evals["card"], evals["cpu"]
+    ude.fit(loss_fn, params, lambda ps: torch.optim.Adam(ps, lr=1e-3), 1)
+    t_step = median_s(lambda: ude.fit(loss_fn, params, lambda ps: torch.optim.Adam(ps, lr=1e-3),
+                                      1), 3)
+    _check(abs(l_c - l_p) <= 1e-4 * l_p and abs(rel_c - rel_p) <= 2e-3,
+           f"[climate d] committed dbdt_nn.npz: one-step loss {l_c:.6g} (CPU {l_p:.6g}, 1e-4 "
+           f"relative), rollout rel-L2 {rel_c:.5f} (CPU {rel_p:.5f}, 2e-3); training_rt's "
+           f"40-pair ADAM step {t_step:.4f} s on {card}")
+
+    launched = (stencil.launches, stencil.tangent_launches, stencil.generic_launches)
+    log(f"[climate] fused RHS kernel launches during phase 13: A {launched[0]}, B {launched[1]}, "
+        f"runtime-width {launched[2]} (this path runs no hand-written kernel); phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB")
+    if any(launched):
+        raise AssertionError("phase 13 launched a fused RHS kernel; its paths reach none")
+
+
 def main():
     if not (ROOT / PKG).is_dir():
         print(f"chip_smoke.py: the package {PKG}/ is not beside this script", file=sys.stderr)
@@ -1457,6 +1622,7 @@ def main():
     phase_ensemble(device, card)
     phase_surface(device, card)
     phase_lv_study(device, card)
+    phase_climate(device, card)
     log(f"[total] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     # each kernel at the main path's shape: N = 26, and T = 465 directions

@@ -27,7 +27,13 @@ slices of the port:
   fused kernel's reverse rule, then LM), the headline benchmark
   (``bench.py``), the remaining explicit RK tables (Dopri5, Bosh3, Euler,
   Heun), ``StencilConv1D``, ``neural_ode``, checkpoint archives that both
-  packages read (``io/``) and the vmapped ensemble runner (``ensemble/``).
+  packages read (``io/``) and the vmapped ensemble runner (``ensemble/``);
+* D: the Lotka-Volterra 500-lane noise study (``examples/run_loops.py``);
+* E: the climate case study — the stabilized explicit solvers (RKC1, RKC2,
+  ROCK2, ROCK4; ``solvers/rkc.py``, ``solvers/rock.py``), the neural-PDE
+  column (``models/climate_npde.py``), the 3-D data generators
+  (``models/climate_datagen.py``) and the four ``examples/climate_*.py``
+  scripts.
 
 Its directory layout and module names mirror the JAX package's.
 """
@@ -45,6 +51,8 @@ from .core.problem import ODEProblem, remake
 from .core.solution import DenseInterpolation, Solution
 from .core.controller import PIController
 from .solvers.runge_kutta import Bosh3, Dopri5, Euler, Heun, Tsit5, Vern7
+from .solvers.rkc import RKC1, RKC2
+from .solvers.rock import ROCK2, ROCK4
 from .adjoint.sensitivity import (
     BacksolveAdjoint,
     DiscreteAdjoint,
@@ -77,6 +85,7 @@ __all__ = [
     "solve", "remake", "ODEProblem",
     "Solution", "DenseInterpolation", "PIController",
     "Tsit5", "Vern7", "Dopri5", "Bosh3", "Euler", "Heun",
+    "RKC1", "RKC2", "ROCK2", "ROCK4",
     "NoAdjoint", "DiscreteAdjoint", "ForwardSensitivity",
     "InterpolatingAdjoint", "BacksolveAdjoint", "QuadratureAdjoint",
     "Chain", "Dense", "MLP", "FourierBasis", "StencilConv1D", "TensorLayer", "rbf",

@@ -10,7 +10,8 @@ drivers share one attempt-step core (solver-agnostic):
   the backward pass instead of storing its stages (outside ``torch.func``
   transforms, which refuse the checkpoint's saved-tensor hooks).
 * ``integrate_fixed`` — equal steps with no controller, for one state or a
-  leading lane dimension of independent states.
+  leading lane dimension of independent states.  It does not cap steps at a
+  stabilized solver's ``dt_stab`` (the adaptive drivers do), as in JAX.
 
 The JAX drivers are one device program each (a ``while_loop`` or a
 ``max_steps``-long ``scan`` whose body passes the state through once ``done``
@@ -180,7 +181,14 @@ def _attempt(f_int, solver, controller, rtol, atol, tau1, state, args, dtype,
     ``passthrough`` a state that is already ``done`` comes back unchanged,
     with ``accept`` false, ``y1``/``f1`` its own and ``err_diff`` 0 (the JAX
     scan's ``lax.cond(state.done, passthrough, stepped)``).
+
+    A stabilized explicit solver (the RKC/ROCK families) has a ``dt_stab``:
+    the attempt's proposal is capped there first.
     """
+    dt_prop = state.dt
+    dt_stab = getattr(solver, "dt_stab", None)
+    if dt_stab is not None:
+        dt_prop = dt_prop.clamp(max=dt_stab)
     if tstops is None:
         next_stop = tau1
     else:
@@ -191,8 +199,8 @@ def _attempt(f_int, solver, controller, rtol, atol, tau1, state, args, dtype,
         idx = idx[0]
         next_stop = torch.where(idx >= n_stop, tau1, torch.minimum(next_ts, tau1))
     dt_cap = next_stop - state.t
-    clamped = state.dt >= dt_cap
-    dt = torch.where(clamped, dt_cap, state.dt)
+    clamped = dt_prop >= dt_cap
+    dt = torch.where(clamped, dt_cap, dt_prop)
     y1, y_err, f1, nfe = solver.step(f_int, state.t, state.y, state.f, dt, args)
     # controller scalars are non-differentiable: computed from detached values
     y_det = state.y.detach()
@@ -212,7 +220,7 @@ def _attempt(f_int, solver, controller, rtol, atol, tau1, state, args, dtype,
     )
     # A step artificially shortened to hit a stop must not shrink the
     # controller's running proposal.
-    dt_next = torch.where(clamped & accept, torch.maximum(dt_next, state.dt), dt_next)
+    dt_next = torch.where(clamped & accept, torch.maximum(dt_next, dt_prop), dt_next)
     t_new = torch.where(clamped, next_stop, state.t + dt)
     reached = accept & (t_new >= tau1)
     eps = torch.finfo(dtype).eps
