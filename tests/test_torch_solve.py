@@ -187,10 +187,10 @@ def test_ravel_pytree_uses_jax_order():
     assert batched["rx"][1]["w"].shape == (2, 1, 2)
 
 
-@pytest.mark.parametrize("case", ["sde", "dae", "saveat_2d", "saveat_outside",
+@pytest.mark.parametrize("case", ["sde", "saveat_2d", "saveat_outside",
                                   "shape", "f_raises", "not_callable"])
 def test_solve_rejects_bad_problems(case):
-    from universal_differential_equations_torch.core.problem import DAEProblem, SDEProblem
+    from universal_differential_equations_torch.core.problem import SDEProblem
 
     u0 = torch.ones(3, dtype=F64)
 
@@ -202,8 +202,6 @@ def test_solve_rejects_bad_problems(case):
     expect = ValueError
     if case == "sde":
         prob, expect = SDEProblem(f, f, u0, (0.0, 1.0)), TypeError
-    elif case == "dae":
-        prob, expect = DAEProblem(f, u0, u0, (0.0, 1.0)), TypeError
     elif case == "saveat_2d":
         kwargs["saveat"] = torch.zeros(2, 2, dtype=F64)
     elif case == "saveat_outside":
@@ -218,6 +216,24 @@ def test_solve_rejects_bad_problems(case):
         if case == "not_callable":
             prob = tude.ODEProblem(None, u0, (0.0, 1.0))
         tude.solve(prob, **kwargs)
+
+
+def test_solve_dispatches_dae_like_jax():
+    # solve(DAEProblem) goes to the BDF solver with solve's defaults in both
+    # packages: an index-1 DAE (u0' = -u0, u0 + u1 = 1) with its mask
+    def res(pk):
+        return lambda t, u, du, a: pk([du[0] + u[0], u[0] + u[1] - 1.0])
+
+    ts = np.linspace(0.0, 1.0, 5)
+    sj = jude.solve(jude.DAEProblem(res(jnp.stack), jnp.array([1.0, 0.0]), jnp.array([-1.0, 0.0]),
+                                    (0.0, 1.0), differential_vars=jnp.array([True, False])),
+                    saveat=jnp.asarray(ts))
+    st = tude.solve(tude.DAEProblem(res(torch.stack), torch.tensor([1.0, 0.0], dtype=F64),
+                                    torch.tensor([-1.0, 0.0], dtype=F64), (0.0, 1.0),
+                                    differential_vars=torch.tensor([True, False])),
+                    saveat=torch.tensor(ts))
+    _assert_same_solution(sj, st)
+    np.testing.assert_allclose(st.ys.numpy()[:, 0], np.exp(-ts), atol=5e-3)  # rtol 1e-3
 
 
 def test_vern7_tableau_is_a_digit_for_digit_copy():

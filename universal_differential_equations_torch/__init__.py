@@ -33,7 +33,12 @@ slices of the port:
   ROCK2, ROCK4; ``solvers/rkc.py``, ``solvers/rock.py``), the neural-PDE
   column (``models/climate_npde.py``), the 3-D data generators
   (``models/climate_datagen.py``) and the four ``examples/climate_*.py``
-  scripts.
+  scripts;
+* F: the implicit solvers (Rosenbrock23, SDIRK3, Kvaerno3, SDIRK4;
+  ``solvers/rosenbrock.py``, ``sdirk.py``, ``esdirk.py``), the
+  variable-order BDF DAE solver (``solvers/bdf.py``: ``daeint``,
+  ``initialize_dae``) behind ``solve``'s DAE dispatch, and the FENE-P case
+  study (``models/fenep.py``, ``examples/fenep.py``).
 
 Its directory layout and module names mirror the JAX package's.
 """
@@ -47,12 +52,16 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
 from .api import solve
-from .core.problem import ODEProblem, remake
+from .core.problem import DAEProblem, ODEProblem, remake
 from .core.solution import DenseInterpolation, Solution
 from .core.controller import PIController
 from .solvers.runge_kutta import Bosh3, Dopri5, Euler, Heun, Tsit5, Vern7
 from .solvers.rkc import RKC1, RKC2
 from .solvers.rock import ROCK2, ROCK4
+from .solvers.rosenbrock import Rosenbrock23
+from .solvers.sdirk import SDIRK3
+from .solvers.esdirk import Kvaerno3, SDIRK4
+from .solvers.bdf import daeint, initialize_dae
 from .adjoint.sensitivity import (
     BacksolveAdjoint,
     DiscreteAdjoint,
@@ -82,10 +91,11 @@ from .convert import params_from_jax, theta_from_jax
 
 __version__ = "0.1.0"
 __all__ = [
-    "solve", "remake", "ODEProblem",
+    "solve", "remake", "ODEProblem", "DAEProblem",
     "Solution", "DenseInterpolation", "PIController",
     "Tsit5", "Vern7", "Dopri5", "Bosh3", "Euler", "Heun",
     "RKC1", "RKC2", "ROCK2", "ROCK4",
+    "Rosenbrock23", "SDIRK3", "Kvaerno3", "SDIRK4", "daeint", "initialize_dae",
     "NoAdjoint", "DiscreteAdjoint", "ForwardSensitivity",
     "InterpolatingAdjoint", "BacksolveAdjoint", "QuadratureAdjoint",
     "Chain", "Dense", "MLP", "FourierBasis", "StencilConv1D", "TensorLayer", "rbf",

@@ -88,7 +88,9 @@ class DiscreteAdjoint(AbstractAdjoint):
     stages.  Under a ``torch.func`` transform (``grad``, ``vjp``,
     ``jacrev``), which refuses ``torch.utils.checkpoint``'s saved-tensor
     hooks, the attempts run without recomputation: the same gradient, with
-    all stages kept.
+    all stages kept.  So do the attempts of the implicit solvers
+    (Rosenbrock23, SDIRK3, Kvaerno3, SDIRK4), whose steps take their
+    Jacobians by ``torch.func.jacrev``.
 
     Caveat (as in the JAX package): if a *rejected* attempt overflows to
     inf/NaN, the backward pass still differentiates that attempt, and the

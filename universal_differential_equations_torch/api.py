@@ -6,9 +6,10 @@ algorithm, and returns a ``Solution`` whose save-grid values are
 differentiable according to the chosen adjoint.  States may be pytrees of
 tensors; they are raveled to flat vectors internally and unraveled on output.
 
-The default adjoint is ``InterpolatingAdjoint``, as in the JAX package.
-Difference from the JAX package, while the port is partial: SDE and DAE
-problems raise ``TypeError``.
+The default adjoint is ``InterpolatingAdjoint``, as in the JAX package.  A
+``DAEProblem`` goes to the BDF solver (``solvers/bdf.py:daeint``).
+Difference from the JAX package, while the port is partial: SDE problems
+raise ``TypeError``.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from .core.controller import PIController
 from .core.problem import DAEProblem, ODEProblem, SDEProblem
 from .core.solution import Solution
 from .flatten_util import ravel_pytree
+from .solvers.bdf import daeint
 from .solvers.runge_kutta import Tsit5
 
 __all__ = ["solve"]
@@ -66,7 +68,9 @@ def solve(
     """Solve an initial value problem on the state's device.
 
     Args:
-      problem: ``ODEProblem``.
+      problem: ``ODEProblem``, or ``DAEProblem``, which goes to ``daeint``
+        with ``saveat``, ``rtol``, ``atol``, ``dt0``, ``max_steps`` (default
+        4096) and ``dense``.
       solver: step method; defaults to ``Tsit5()``.
       saveat: 1-D tensor (or sequence) of output times within ``tspan``.
         ``None`` saves the two endpoints.  Values off the step grid are
@@ -90,10 +94,14 @@ def solve(
     Returns:
       ``Solution`` with ``ts``/``ys`` on the save grid.
     """
-    if isinstance(problem, (SDEProblem, DAEProblem)):
+    if isinstance(problem, SDEProblem):
         raise TypeError(
-            f"{type(problem).__name__} is not yet ported to the PyTorch package: "
-            "use universal_differential_equations_tpu for SDE and DAE problems")
+            "SDEProblem is not yet ported to the PyTorch package: "
+            "use universal_differential_equations_tpu for SDE problems")
+    if isinstance(problem, DAEProblem):
+        # unified front-end dispatch: DAEs go to the BDF solver
+        return daeint(problem, saveat=saveat, rtol=rtol, atol=atol, dt0=dt0,
+                      max_steps=max_steps or 4096, dense=dense)
     if not isinstance(problem, ODEProblem):
         raise TypeError(f"unsupported problem type {type(problem)}")
 

@@ -5,8 +5,9 @@ immutable dataclasses; ``remake`` (reference ``scenario_1.jl:83``) is a
 functional update.  ``u0`` may be a tensor or a pytree of tensors (dicts,
 lists, tuples); ``solve`` ravels it to a flat vector and unravels on output.
 
-Only ``ODEProblem`` has a solver in the port so far; ``solve`` rejects the
-SDE and DAE problem types with a ``TypeError``.
+``solve`` takes ``ODEProblem`` and ``DAEProblem`` (the latter through
+``solvers/bdf.py:daeint``); the SDE problem type has no solver in the port
+yet, and ``solve`` rejects it with a ``TypeError``.
 """
 from __future__ import annotations
 
