@@ -84,7 +84,7 @@ Phases, in order; any failure raises and the script exits non-zero:
        float64, equal to the CPU's to 1e-9 relative;
    (b) per variant, the training loss's gradient at full width (9,157 and
        4,481 parameters, float32, rtol 1e-6): interpolating against discrete
-       adjoint within 1e-3 relative, with the median seconds of 3 calls;
+       adjoint within 1e-3 relative, with the median seconds of 2 calls;
    (c) per variant, ``train_variant`` with 5 ADAM steps and 5 BFGS
        iterations, with seconds per step and iteration: the loss is finite
        and falls below the initial one for the neural ODE; for the exposure
@@ -153,7 +153,7 @@ Phases, in order; any failure raises and the script exits non-zero:
         solve; no accepted step longer than ``dt_stab``;
     (b) ``climate_neural_pde`` at full width (30→8→30, 518 parameters,
         float32): one LM iteration leaves a finite, non-rising loss; the
-        interpolating adjoint's loss and gradient, timed over 5 calls
+        interpolating adjoint's loss and gradient, timed over 3 calls
         (``climate_adjoint_loss_grad``; the reference's Julia run 0.879 s),
         and in float64 equal to the CPU's to 1e-8 relative;
     (c) one RT chunk (10 Heun/Leray steps) at 128×2×128 from a random
@@ -195,6 +195,29 @@ Phases, in order; any failure raises and the script exits non-zero:
         (b), best of 2 after (b)'s identical call), and the seconds of one
         FENE-P ADAM step (``examples/fenep.py``'s loss over its 6 modes,
         ``DiscreteAdjoint``, float32; one step after a warm-up step).
+
+15. Slice G, the SDE solvers, the deep-BSDE trainer and the 100-D HJB
+    (``solvers/sde.py``, ``deepbsde/``, ``examples/hjb_100d.py``), on the
+    card against the CPU port; the CPU references run in a worker process
+    beside the card's work; this path runs no hand-written kernel (both
+    counters must read 0 after it):
+    (a) ``sdeint`` with EulerMaruyama and EulerHeun on OU (300 steps) and GBM
+        (256 steps), 2000 paths in one ``torch.func.vmap`` call each, the
+        increments drawn on the CPU and moved: float64 paths equal the CPU's
+        to 1e-12 relative, float32 within 1e-5; EM's OU mean and variance at
+        T = 3 meet ``tests/test_sde_deepbsde.py:41-42``'s bounds;
+    (b) ``AdaptiveEM`` (grid 512, abstol 1e-4, reltol 1e-3) over 400 OU lanes
+        in one vmapped call, float64: every lane's ``num_steps`` equals the
+        CPU's, ``y_final`` to 1e-12, mean |adaptive − fixed| < 0.02 against
+        ``sdeint`` on the same grid; the host reads of the solve are printed;
+    (c) the HJB at full width (d = 100, m = 100, ``n_steps`` 20, float32):
+        5 ADAM iterations from the same weights and draws, losses within
+        1e-4 relative of the CPU's; the AdaptiveEM pilot's grid equals the
+        CPU's from the same pilot draws; seconds per iteration at ``n_steps``
+        20 and 50 (``utils.profiling.benchmark``, median of 20 after a
+        warm-up);
+    (d) ``mc_analytical_hjb`` at d = 100, 10^5 samples in float32, from the
+        same draws: within 1e-5 relative of the CPU's.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel with
 its bound on the card (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s float32); the
@@ -1014,7 +1037,7 @@ def phase_seir_lv3(device, card):
             return loss.detach(), torch.autograd.grad(loss, x)[0]
 
         runs = []
-        for _ in range(3):
+        for _ in range(2):
             _sync()
             t0 = time.perf_counter()
             l_i, g_i = grad(ude.InterpolatingAdjoint())
@@ -1028,7 +1051,7 @@ def phase_seir_lv3(device, card):
         _check(bool(torch.isfinite(g_i).all()) and rg <= 1e-3,
                f"[seir b] {name} ({flat.numel()} params, float32, rtol 1e-6): loss "
                f"{float(l_i):.6g}, interpolating vs discrete adjoint gradient rel {rg:.3e} "
-               f"(1e-3); seconds per gradient, median of 3: {statistics.median(runs):.3f} "
+               f"(1e-3); seconds per gradient, median of 2: {statistics.median(runs):.3f} "
                f"(discrete {t_d:.3f}) on {card}")
         l0 = float(l_i)
         t0 = time.perf_counter()
@@ -1583,7 +1606,7 @@ def phase_climate(device, card):
            f"{l_init:.5g} -> {l_lm:.5g} in {t_lm:.2f} s on {card}")
     vg = npde.adjoint_loss(rhs, u0, ts, data, D1, D2)
     npde.value_and_grad(vg, params0)
-    t_adj = median_s(lambda: npde.value_and_grad(vg, params0), 5)
+    t_adj = median_s(lambda: npde.value_and_grad(vg, params0), 3)
     cast = lambda x, dev: x.to(dtype=f64, device=dev)  # noqa: E731
     grads = {}
     for key, dev in (("card", device), ("cpu", cpu)):
@@ -1594,7 +1617,7 @@ def phase_climate(device, card):
                                      npde.value_and_grad(loss64, p64)[1]]).cpu()
     r_g = _rel(grads["card"], grads["cpu"])
     _check(r_g <= 1e-8,
-           f"[climate b] climate_adjoint_loss_grad {t_adj:.4f} s (median of 5 calls, float32; "
+           f"[climate b] climate_adjoint_loss_grad {t_adj:.4f} s (median of 3 calls, float32; "
            f"the reference's Julia run 0.879 s) on {card}; float64 gradient card vs CPU "
            f"rel {r_g:.2e} (1e-8)")
     del grads
@@ -1874,6 +1897,206 @@ def phase_stiff_dae(device, card):
         raise AssertionError("phase 14 launched a fused RHS kernel; its paths reach none")
 
 
+SDE_PATHS = 2000
+ADAPTIVE_LANES = 400
+HJB_ITERS = 5
+
+
+def _sde_problems(dtype, device):
+    """OU (tests/test_sde_deepbsde.py:24-31; 300 steps) and GBM (:45-53; 256
+    steps): ``{name: (problem, n_steps)}``."""
+    import torch
+    import universal_differential_equations_torch as ude
+
+    one = torch.tensor([1.0], dtype=dtype, device=device)
+    return {"OU": (ude.SDEProblem(f=lambda t, y, a: -1.5 * y,
+                                  g=lambda t, y, a: 0.4 * torch.ones_like(y),
+                                  u0=one, tspan=(0.0, 3.0)), 300),
+            "GBM": (ude.SDEProblem(f=lambda t, y, a: 0.8 * y, g=lambda t, y, a: 0.3 * y,
+                                   u0=one, tspan=(0.0, 1.0)), 256)}
+
+
+def _sde_paths(device):
+    """Phase 15 (a): ``sdeint`` over 2000 paths in one vmapped call per
+    problem, solver and dtype, on increments drawn on the CPU (seed 15) and
+    moved to ``device``: ``{(dtype, problem, solver): ys (2000, 31, 1)}``
+    on the CPU."""
+    import torch
+    from universal_differential_equations_torch.solvers import sde
+
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        for name, (prob, n) in _sde_problems(dtype, device).items():
+            t0, t1 = prob.tspan
+            z = torch.randn((SDE_PATHS, n, 1), generator=torch.Generator().manual_seed(15),
+                            dtype=torch.float64)
+            dws = (z * math.sqrt((t1 - t0) / n)).to(dtype=dtype, device=device)
+            ts = torch.linspace(t0, t1, 31, dtype=dtype, device=device)
+            for solver in ("EulerMaruyama", "EulerHeun"):
+                step = getattr(sde, solver)()
+                sol = torch.func.vmap(lambda w: sde.sdeint(prob, step, dws=w, saveat=ts))(dws)
+                out[(str(dtype), name, solver)] = sol.ys.cpu()
+    return out
+
+
+def _adaptive_lanes(device):
+    """Phase 15 (b): ``AdaptiveEM`` (grid 512, abstol 1e-4, reltol 1e-3) over
+    400 OU lanes in one vmapped call, float64, grid increments from seed 16,
+    and ``sdeint`` on the same grid: ``(num_steps, y_final, fixed y_final,
+    host reads)``."""
+    import torch
+    from universal_differential_equations_torch.solvers import sde
+
+    prob, _ = _sde_problems(torch.float64, device)["OU"]
+    z = torch.randn((ADAPTIVE_LANES, 512, 1), generator=torch.Generator().manual_seed(16),
+                    dtype=torch.float64)
+    incs = (z * math.sqrt(3.0 / 512)).to(device)
+    alg = sde.AdaptiveEM(grid_resolution=512, abstol=1e-4, reltol=1e-3)
+    reads = sde.host_reads
+    sol = torch.func.vmap(lambda w: alg.solve(prob, dws=w))(incs)
+    n_steps, y_final = sol.num_steps.cpu(), sol.y_final[:, 0].cpu()
+    reads = sde.host_reads - reads
+    fixed = torch.func.vmap(lambda w: sde.sdeint(prob, dws=w).y_final[0])(incs)
+    return n_steps, y_final, fixed.cpu(), reads
+
+
+def _hjb_normals():
+    """Phase 15 (c)'s draws, on the CPU: 5 iterations' (100, 20, 100)
+    normals and the pilot's (8, 1024, 100), float32, seed 17."""
+    import torch
+
+    g = torch.Generator().manual_seed(17)
+    return (torch.randn((HJB_ITERS, 100, 20, 100), generator=g),
+            torch.randn((8, 1024, 100), generator=g))
+
+
+def _hjb_parity(device):
+    """Phase 15 (c): the HJB at full width (d = 100, m = 100, n_steps = 20,
+    float32) from ``torch.Generator(0)``'s initial weights: the losses of 5
+    ADAM iterations on ``_hjb_normals``' draws, and the grid an AdaptiveEM
+    pilot over 8 lanes picks from its pilot draws (tolerances 2e-2, one
+    training iteration on that grid)."""
+    import torch
+    from universal_differential_equations_torch import deepbsde
+    from universal_differential_equations_torch.examples import hjb_100d
+
+    prob, alg = hjb_100d.hjb_problem(device)
+    g = torch.Generator().manual_seed(0)
+    params = {"u0": alg.u0_net.init(g, device=device), "grad": alg.grad_net.init(g, device=device)}
+    iters, pilot = _hjb_normals()
+    step, _ = deepbsde.make_train_step(prob, alg, prob.x0, params, 20)
+    losses = [float(step(iters[i].to(device))) for i in range(HJB_ITERS)]
+
+    def normals(stage, it, shape):
+        return pilot if stage == "pilot" else torch.zeros(shape)
+
+    res = deepbsde.solve_terminal_pde(prob, alg, params=params, normals=normals, maxiters=1,
+                                      adaptive=True, sde_abstol=2e-2, sde_reltol=2e-2,
+                                      max_refinements=0)
+    return losses, res.n_steps, step, prob, alg, params
+
+
+def _mc_draws():
+    """Phase 15 (d)'s draws: 10 batches of 10^4 samples at d = 100, float32,
+    seed 7, on the CPU."""
+    import torch
+
+    return torch.randn((10, 10**4, 100), generator=torch.Generator().manual_seed(7))
+
+
+def _sde_bsde_cpu_refs():
+    """The CPU port's references for phase 15, run in a worker process beside
+    the card's work."""
+    import torch
+    from universal_differential_equations_torch import deepbsde
+    from universal_differential_equations_torch.examples import hjb_100d
+
+    torch.set_num_threads(4)
+    sys.path.insert(0, str(ROOT))
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    paths = _sde_paths(cpu)
+    lanes = _adaptive_lanes(cpu)
+    losses, n_pilot = _hjb_parity(cpu)[:2]
+    prob, _ = hjb_100d.hjb_problem(cpu)
+    mc = deepbsde.mc_analytical_hjb(prob.g, prob.x0, 1.0, 1.0, normals=_mc_draws())
+    return dict(paths=paths, lanes=lanes, losses=losses, n_pilot=n_pilot, mc=mc,
+                seconds=time.perf_counter() - t0)
+
+
+def phase_sde_bsde(device, card):
+    """Phase 15: slice G (see the module docstring)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    from universal_differential_equations_torch import deepbsde
+    from universal_differential_equations_torch.ops import stencil
+    from universal_differential_equations_torch.solvers import sde
+    from universal_differential_equations_torch.utils import profiling
+
+    stencil.launches = stencil.tangent_launches = stencil.generic_launches = 0
+    t_phase = time.perf_counter()
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        refs = pool.submit(_sde_bsde_cpu_refs)
+        paths = _sde_paths(device)
+        n_steps, y_final, fixed, reads = _adaptive_lanes(device)
+        losses, n_pilot, _, prob, alg, params = _hjb_parity(device)
+        timing = {}
+        for n in (20, 50):
+            z = torch.randn((100, n, 100), generator=torch.Generator().manual_seed(n)).to(device)
+            step, _ = deepbsde.make_train_step(prob, alg, prob.x0, params, n)
+            timing[n] = profiling.benchmark(step, z, repeats=20, warmup=1)
+        mc = deepbsde.mc_analytical_hjb(prob.g, prob.x0, 1.0, 1.0, normals=_mc_draws())
+        t_card = time.perf_counter() - t_phase
+        refs = refs.result()
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+    for key, ys in paths.items():
+        ref = refs["paths"][key]
+        r = _rel(ys, ref)
+        bound = 1e-12 if key[0] == "torch.float64" else 1e-5
+        _check(torch.isfinite(ys).all() and r <= bound,
+               f"[sde a] sdeint {key[2]} on {key[1]} in {key[0]}, {SDE_PATHS} paths in one vmapped "
+               f"call: card against CPU rel {r:.2e} ({bound:g})")
+    y_ou = paths[("torch.float64", "OU", "EulerMaruyama")][:, -1, 0]
+    mean, var = float(y_ou.mean()), float(y_ou.var(correction=0))
+    _check(abs(mean - math.exp(-4.5)) < 0.01 and abs(var - 0.4 ** 2 / 3.0) < 0.008,
+           f"[sde a] EM OU at T = 3: mean {mean:.5f} (e^-4.5 = {math.exp(-4.5):.5f} within 0.01), "
+           f"variance {var:.5f} ({0.4 ** 2 / 3.0:.5f} within 0.008)")
+    n_ref, y_ref, _, _ = refs["lanes"]
+    r = _rel(y_final, y_ref)
+    gap = float((y_final - fixed).abs().mean())
+    _check(torch.equal(n_steps, n_ref) and r <= 1e-12 and gap < 0.02,
+           f"[sde b] AdaptiveEM over {ADAPTIVE_LANES} OU lanes in one vmapped call: every lane's "
+           f"num_steps equals the CPU's ({int(n_steps.min())}-{int(n_steps.max())} steps), y_final "
+           f"rel {r:.2e} (1e-12), mean |adaptive - fixed| {gap:.5f} (0.02); {reads} host reads "
+           f"for the solve (one per {sde._BLOCK} attempts)")
+    r_loss = max(abs(a / b - 1.0) for a, b in zip(losses, refs["losses"]))
+    _check(all(math.isfinite(x) for x in losses) and r_loss <= 1e-4,
+           f"[sde c] HJB d = 100, m = 100, n_steps = 20, float32: {HJB_ITERS} ADAM iterations, "
+           f"losses {[round(x, 6) for x in losses]} within {r_loss:.1e} of the CPU's (1e-4)")
+    _check(n_pilot == refs["n_pilot"],
+           f"[sde c] AdaptiveEM pilot (8 lanes, 2e-2): n_steps {n_pilot} on the card, "
+           f"{refs['n_pilot']} on the CPU")
+    log(f"[sde c] deep-BSDE s per iteration (median of 20 after a warm-up): n_steps 20 "
+        f"{timing[20]['median_s']:.5f} s, n_steps 50 {timing[50]['median_s']:.5f} s "
+        f"(first calls {timing[20]['compile_s']:.3f} / {timing[50]['compile_s']:.3f} s) on {card}")
+    r_mc = abs(mc / refs["mc"] - 1.0)
+    _check(math.isfinite(mc) and r_mc <= 1e-5,
+           f"[sde d] mc_analytical_hjb d = 100, 10^5 samples, float32: {mc:.6f} on the card, "
+           f"{refs['mc']:.6f} on the CPU (rel {r_mc:.1e}, 1e-5)")
+    launched = (stencil.launches, stencil.tangent_launches, stencil.generic_launches)
+    log(f"[sde] fused RHS kernel launches during phase 15: A {launched[0]}, B {launched[1]}, "
+        f"runtime-width {launched[2]} (this path runs no hand-written kernel); card work "
+        f"{t_card:.1f} s, CPU references {refs['seconds']:.1f} s beside it; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if any(launched):
+        raise AssertionError("phase 15 launched a fused RHS kernel; its paths reach none")
+
+
 def main():
     if not (ROOT / PKG).is_dir():
         print(f"chip_smoke.py: the package {PKG}/ is not beside this script", file=sys.stderr)
@@ -1899,6 +2122,7 @@ def main():
     phase_lv_study(device, card)
     phase_climate(device, card)
     phase_stiff_dae(device, card)
+    phase_sde_bsde(device, card)
     log(f"[total] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     # each kernel at the main path's shape: N = 26, and T = 465 directions

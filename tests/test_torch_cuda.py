@@ -285,3 +285,41 @@ def test_lane_batched_bfgs_matches_single_lanes(cuda_device):
             maxiters=50, initial_stepnorm=0.01)
         assert int(res.iterations[lane]) == int(one.iterations)
         torch.testing.assert_close(res.params[lane], one.params, rtol=1e-10, atol=1e-10)
+
+
+def test_sdeint_float32_matches_cpu(cuda_device):
+    # 256 Euler-Maruyama OU paths in one vmapped call, the same increments
+    from universal_differential_equations_torch.solvers import sde
+
+    z = torch.randn((256, 300, 1), generator=torch.Generator().manual_seed(5)) * (0.01 ** 0.5)
+
+    def paths(device):
+        prob = tude.SDEProblem(f=lambda t, y, a: -1.5 * y,
+                               g=lambda t, y, a: 0.4 * torch.ones_like(y),
+                               u0=torch.ones(1, device=device), tspan=(0.0, 3.0))
+        ts = torch.linspace(0.0, 3.0, 31, device=device)
+        return torch.func.vmap(lambda w: sde.sdeint(prob, dws=w, saveat=ts).ys)(z.to(device))
+
+    card = paths(cuda_device)
+    assert card.device == cuda_device
+    torch.testing.assert_close(card.cpu(), paths(torch.device("cpu")), rtol=1e-5, atol=1e-5)
+
+
+def test_deep_bsde_iteration_matches_cpu(cuda_device):
+    # the 100-D HJB at full width: two ADAM iterations from the same weights
+    # and draws; the loss before any update to 1e-5, after one to 1e-4
+    from universal_differential_equations_torch import deepbsde
+    from universal_differential_equations_torch.examples import hjb_100d
+
+    z = torch.randn((2, 100, 20, 100), generator=torch.Generator().manual_seed(6))
+
+    def losses(device):
+        prob, alg = hjb_100d.hjb_problem(device)
+        g = torch.Generator().manual_seed(0)
+        params = {"u0": alg.u0_net.init(g, device=device),
+                  "grad": alg.grad_net.init(g, device=device)}
+        step, _ = deepbsde.make_train_step(prob, alg, prob.x0, params, 20)
+        return [float(step(z[i].to(device))) for i in range(2)]
+
+    card, cpu = losses(cuda_device), losses(torch.device("cpu"))
+    assert abs(card[0] / cpu[0] - 1.0) <= 1e-5 and abs(card[1] / cpu[1] - 1.0) <= 1e-4

@@ -38,7 +38,11 @@ slices of the port:
   ``solvers/rosenbrock.py``, ``sdirk.py``, ``esdirk.py``), the
   variable-order BDF DAE solver (``solvers/bdf.py``: ``daeint``,
   ``initialize_dae``) behind ``solve``'s DAE dispatch, and the FENE-P case
-  study (``models/fenep.py``, ``examples/fenep.py``).
+  study (``models/fenep.py``, ``examples/fenep.py``);
+* G: the SDE solvers (EulerMaruyama, EulerHeun, AdaptiveEM;
+  ``solvers/sde.py``), the deep-BSDE trainer (``deepbsde/``), the 100-D HJB
+  case study (``examples/hjb_100d.py``) and the timing helpers
+  (``utils/profiling.py``).
 
 Its directory layout and module names mirror the JAX package's.
 """
@@ -52,7 +56,7 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
 from .api import solve
-from .core.problem import DAEProblem, ODEProblem, remake
+from .core.problem import DAEProblem, ODEProblem, SDEProblem, remake
 from .core.solution import DenseInterpolation, Solution
 from .core.controller import PIController
 from .solvers.runge_kutta import Bosh3, Dopri5, Euler, Heun, Tsit5, Vern7
@@ -62,6 +66,7 @@ from .solvers.rosenbrock import Rosenbrock23
 from .solvers.sdirk import SDIRK3
 from .solvers.esdirk import Kvaerno3, SDIRK4
 from .solvers.bdf import daeint, initialize_dae
+from .solvers.sde import AdaptiveEM, EulerHeun, EulerMaruyama, sdeint
 from .adjoint.sensitivity import (
     BacksolveAdjoint,
     DiscreteAdjoint,
@@ -91,11 +96,12 @@ from .convert import params_from_jax, theta_from_jax
 
 __version__ = "0.1.0"
 __all__ = [
-    "solve", "remake", "ODEProblem", "DAEProblem",
+    "solve", "remake", "ODEProblem", "SDEProblem", "DAEProblem",
     "Solution", "DenseInterpolation", "PIController",
     "Tsit5", "Vern7", "Dopri5", "Bosh3", "Euler", "Heun",
     "RKC1", "RKC2", "ROCK2", "ROCK4",
     "Rosenbrock23", "SDIRK3", "Kvaerno3", "SDIRK4", "daeint", "initialize_dae",
+    "sdeint", "EulerMaruyama", "EulerHeun", "AdaptiveEM",
     "NoAdjoint", "DiscreteAdjoint", "ForwardSensitivity",
     "InterpolatingAdjoint", "BacksolveAdjoint", "QuadratureAdjoint",
     "Chain", "Dense", "MLP", "FourierBasis", "StencilConv1D", "TensorLayer", "rbf",

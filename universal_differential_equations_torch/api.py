@@ -7,9 +7,9 @@ differentiable according to the chosen adjoint.  States may be pytrees of
 tensors; they are raveled to flat vectors internally and unraveled on output.
 
 The default adjoint is ``InterpolatingAdjoint``, as in the JAX package.  A
-``DAEProblem`` goes to the BDF solver (``solvers/bdf.py:daeint``).
-Difference from the JAX package, while the port is partial: SDE problems
-raise ``TypeError``.
+``DAEProblem`` goes to the BDF solver (``solvers/bdf.py:daeint``); an
+``SDEProblem`` raises a ``TypeError`` that names ``sdeint``, which takes the
+Brownian noise.
 """
 from __future__ import annotations
 
@@ -96,8 +96,9 @@ def solve(
     """
     if isinstance(problem, SDEProblem):
         raise TypeError(
-            "SDEProblem is not yet ported to the PyTorch package: "
-            "use universal_differential_equations_tpu for SDE problems")
+            "SDE problems need Brownian noise: use "
+            "universal_differential_equations_torch.solvers.sde.sdeint(problem, generator=...)"
+        )
     if isinstance(problem, DAEProblem):
         # unified front-end dispatch: DAEs go to the BDF solver
         return daeint(problem, saveat=saveat, rtol=rtol, atol=atol, dt0=dt0,

@@ -6,8 +6,9 @@ functional update.  ``u0`` may be a tensor or a pytree of tensors (dicts,
 lists, tuples); ``solve`` ravels it to a flat vector and unravels on output.
 
 ``solve`` takes ``ODEProblem`` and ``DAEProblem`` (the latter through
-``solvers/bdf.py:daeint``); the SDE problem type has no solver in the port
-yet, and ``solve`` rejects it with a ``TypeError``.
+``solvers/bdf.py:daeint``); an ``SDEProblem`` goes to ``solvers/sde.py``
+(``sdeint``, ``AdaptiveEM``), which take its Brownian noise, and ``solve``
+rejects it with a ``TypeError`` that says so.
 """
 from __future__ import annotations
 

@@ -1,9 +1,11 @@
 """Problem and device utilities.
 
-Port of ``rescale_problem`` from ``universal_differential_equations_tpu/utils``,
-and ``card_name``, the device line that the pipelines and the benchmark print.
-The rest of that module (device probes, the XLA compilation cache) serves the
-TPU and has no counterpart here.
+Port of ``rescale_problem`` and the tree helpers (``flat_dim``,
+``zeros_like_tree``, ``tree_where``, ``tree_add``, ``tree_scale``) from
+``universal_differential_equations_tpu/utils``, and ``card_name``, the device
+line that the pipelines and the benchmark print.  The rest of that module
+(device probes, the XLA compilation cache) serves the TPU and has no
+counterpart here; ``profiling`` holds the timing helpers.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import torch
 
 from ..flatten_util import tree_flatten
 
-__all__ = ["card_name", "rescale_problem"]
+__all__ = ["card_name", "flat_dim", "rescale_problem", "tree_add", "tree_scale", "tree_where",
+           "zeros_like_tree"]
 
 
 def card_name(device):
@@ -26,6 +29,27 @@ def card_name(device):
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def flat_dim(tree) -> int:
+    """Total number of scalar entries in a tree of tensors."""
+    return sum(leaf.numel() for leaf in tree_flatten(tree)[0])
+
+
+def zeros_like_tree(tree):
+    return _map2(lambda x, _: torch.zeros_like(x), tree, tree)
+
+
+def tree_where(pred, a, b):
+    return _map2(lambda x, y: torch.where(pred, x, y), a, b)
+
+
+def tree_add(a, b):
+    return _map2(torch.add, a, b)
+
+
+def tree_scale(c, a):
+    return _map2(lambda x, _: c * x, a, a)
 
 
 def _leaves_like(tree, other):
