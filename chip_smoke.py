@@ -43,7 +43,7 @@ Phases, in order; any failure raises and the script exits non-zero:
        1e-6: relative 1e-3; float64 at 1e-8: relative 1e-6), against the
        CPU float64 port (relative 1e-9) and under ``torch.func.grad``
        (relative 1e-12), with the median seconds per gradient over 3 calls;
-   (c) 5 ADAM steps (float32) and 5 BFGS iterations (float64): the loss is
+   (c) 5 ADAM steps (float32) and 3 BFGS iterations (float64): the loss is
        finite and falls;
    (d) SINDy (polynomial degree 5 + sin, the scenario's λ grid) on the true
        interactions selects exactly x·y per equation, at −0.9 and 0.8 to 1e-6;
@@ -51,7 +51,7 @@ Phases, in order; any failure raises and the script exits non-zero:
        extrapolated to t = 50: the solve succeeds and the period is within
        10 % of the truth's;
    (f) a 4-lane ``bfgs_minimize_lanes`` over ``integrate_fixed`` equals the
-       four single-lane ``bfgs_minimize`` runs to 1e-10 (float64, 5
+       four single-lane ``bfgs_minimize`` runs to 1e-10 (float64, 2
        iterations).
    (c), (e) and (f) call the pipeline's own stages
    (``examples/lv_scenario_1.py``: ``make_loss``, ``refit``, ``extrapolate``,
@@ -136,8 +136,10 @@ Phases, in order; any failure raises and the script exits non-zero:
         selects the CPU's supports on every lane (the agreement with the JAX
         ``recover_stage`` on the same weights, recorded in
         ``examples/data/lv_study_recover.npz``, and with the JAX study's
-        trained arm is printed); the CPU's selections of (b) and (c) run in
-        worker processes beside the card's, one per stage;
+        trained arm is printed); the selections of (b) and (c) run in
+        worker processes, one per stage and device: the CPU's from the
+        phase's start, the card's side by side after (a), which only their
+        start-up overlaps;
     (c) ``oracle_stage`` and ``weak_stage``: the card selects the CPU's
         supports, and at least 23 of 25 lanes per arm select the active sets
         the JAX study archived (``loop_study.npz``);
@@ -218,6 +220,30 @@ Phases, in order; any failure raises and the script exits non-zero:
         warm-up);
     (d) ``mc_analytical_hjb`` at d = 100, 10^5 samples in float32, from the
         same draws: within 1e-5 relative of the CPU's.
+
+16. Slice H.1, ``parallel/`` and every ``mesh=`` path, on a one-rank NCCL
+    process group on ``cuda:0`` (``initialize_distributed`` with a
+    ``localhost`` address; its collectives are real NCCL launches): each
+    sharded path against its unsharded run on the card:
+    (a) ``ensemble_run(sharded=True)`` over 64 LV lanes (float32): outputs
+        within 1e-6 relative, the same success flags;
+    (b) ``multiple_shoot(mesh=)``'s loss and ``torch.func.grad`` (17 points,
+        group 3, float32) within 1e-6;
+    (c) the deep-BSDE trainer at the 100-D HJB's width: 5 iterations with
+        ``mesh`` on the same draws, losses within 1e-5; seconds per
+        iteration with and without the mesh at ``n_steps`` 20 and 50;
+    (d) ``run_loops``' recover stage with the study's judge on one chunk,
+        the JAX study's 500 lanes after 5 ADAM steps: selections equal,
+        coefficients within 1e-6 of the unsharded run, which a worker
+        process computes on the same card meanwhile;
+    (e) one RT chunk at 128×2×128 for both ``bc``s on the x-decomposed mesh
+        (halo exchanges, the slab FFT): fields within 5e-5, and the ms per
+        step with and without the mesh;
+    (f) ``dryrun_multichip(2)`` on two gloo ranks of the host's CPU in a
+        child process, beside (a)–(e): its six surfaces pass.
+    The timings of (c) and (e) come first, before the child and the
+    worker start.  The
+    group is closed before the last lines; kernels A and B launch 0 times.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel with
 its bound on the card (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s float32); the
@@ -727,7 +753,7 @@ def phase_lv(device, card):
         f"({1 / s32:.3f} grad steps/s), float64 {s64:.4f} s on {card}")
 
     # (c) short training through the pipeline's loss: 5 ADAM steps (float32),
-    # then 5 BFGS iterations (float64)
+    # then 3 BFGS iterations (float64)
     t0 = time.perf_counter()
     loss32 = scen.make_loss(rhs, Xn32, ts32, 1e-6)
     l0 = float(loss32(params0))
@@ -739,7 +765,7 @@ def phase_lv(device, card):
     p64 = [{k: v.double() for k, v in layer.items()} for layer in res1.params]
     l1 = float(loss64(p64))
     t0 = time.perf_counter()
-    res2 = ude.bfgs_minimize(loss64, p64, maxiters=5, initial_stepnorm=0.01, gtol=1e-12)
+    res2 = ude.bfgs_minimize(loss64, p64, maxiters=3, initial_stepnorm=0.01, gtol=1e-12)
     _sync()
     t_bfgs = time.perf_counter() - t0
     l2 = float(res2.value)
@@ -788,7 +814,7 @@ def phase_lv(device, card):
                       .to(device) * (C_true != 0) for _ in range(4)])
     C0[1, basis.names.index("u1")] = torch.tensor([0.05, -0.02], dtype=f64, device=device)
     mask = (C0 != 0).to(f64)
-    kw = dict(maxiters=5, initial_stepnorm=0.01)
+    kw = dict(maxiters=2, initial_stepnorm=0.01)
     t0 = time.perf_counter()
     lanes = ude.bfgs_minimize_lanes(scen.judge_loss(basis, u0, X_noisy64, ts64, mask), C0, **kw)
     _sync()
@@ -1402,27 +1428,45 @@ def _study_cpu_training(lanes):
     return _study_train(s, data, theta0, lambda: None)
 
 
-def _study_cpu_supports(name, lanes, theta_tr, loss_tr):
-    """The CPU port's selection of stage ``name`` for phase 12 (b) or (c),
-    run in a worker process beside the card's (one worker per stage):
-    ``(support 1, support 2, seconds)``."""
-    import numpy as np
+_STUDY = {}
+
+
+def _study_stages(device):
+    """The study's stages on ``device``, built once per worker process."""
     import torch
 
-    torch.set_num_threads(2)
-    sys.path.insert(0, str(ROOT))
-    from universal_differential_equations_torch.examples import run_loops as rl
+    if device not in _STUDY:
+        if device == "cpu":
+            torch.set_num_threads(2)
+        sys.path.insert(0, str(ROOT))
+        from universal_differential_equations_torch.examples import run_loops as rl
 
-    s = rl.build_stages(device="cpu")
+        _STUDY[device] = rl.build_stages(device=device)
+    return _STUDY[device]
+
+
+def _warm_study(device):
+    """A worker's first task: build its stages before its real task comes."""
+    _study_stages(device)
+
+
+def _study_supports(device, name, lanes, theta_tr, loss_tr):
+    """The port's selection of stage ``name`` for phase 12 (b) or (c) on
+    ``device``, in a worker process beside the phase's other work (one per
+    stage and device): ``(support 1, support 2, seconds)``."""
+    import torch
+
+    s = _study_stages(device)
     data, _, mags = s.lane_inputs(lanes, 100)
-    calls = {"recover_stage": (lambda: s.recover_stage(torch.as_tensor(theta_tr), data,
-                                                       torch.as_tensor(loss_tr), mags), 3),
+    theta, loss = (torch.as_tensor(a, device=device) for a in (theta_tr, loss_tr))
+    calls = {"recover_stage": (lambda: s.recover_stage(theta, data, loss, mags), 3),
              "oracle_stage": (lambda: s.oracle_stage(data, mags), 2),
              "weak_stage": (lambda: s.weak_stage(data, mags), 2)}
     fn, i = calls[name]
     t0 = time.perf_counter()
     r = fn()
-    return np.asarray(r[i]) != 0, np.asarray(r[i + 1]) != 0, time.perf_counter() - t0
+    c1, c2 = (r[j].cpu().numpy() != 0 for j in (i, i + 1))
+    return c1, c2, time.perf_counter() - t0
 
 
 def phase_lv_study(device, card):
@@ -1446,13 +1490,17 @@ def phase_lv_study(device, card):
     with np.load(ROOT / PKG / "examples" / "data" / "lv_study_recover.npz") as z:
         jax_rec = (z["coef1"] != 0, z["coef2"] != 0)
     # the CPU's training stages (a) and selections (b), (c) run in workers
-    # beside the card's, one per stage
-    pool = ProcessPoolExecutor(len(STUDY_STAGES) + 1,
-                               mp_context=multiprocessing.get_context("spawn"))
+    # beside the card's, one per stage; the card's selections run in workers
+    # of their own after (a), which only their start-up overlaps
+    spawn = multiprocessing.get_context("spawn")
+    pool = ProcessPoolExecutor(len(STUDY_STAGES) + 1, mp_context=spawn)
+    card_pool = ProcessPoolExecutor(len(STUDY_STAGES), mp_context=spawn)
     try:
         cpu_train = pool.submit(_study_cpu_training, lanes)
-        cpu_sel = {name: pool.submit(_study_cpu_supports, name, lanes, theta_tr, loss_tr)
+        cpu_sel = {name: pool.submit(_study_supports, "cpu", name, lanes, theta_tr, loss_tr)
                    for name in STUDY_STAGES}
+        for _ in STUDY_STAGES:
+            card_pool.submit(_warm_study, str(device))
         s = rl.build_stages(device=device)
 
         def timed(fn):
@@ -1477,23 +1525,19 @@ def phase_lv_study(device, card):
         log(f"[study a] 500 lanes on the card, graphs captured: {t_adam:.3f} s per ADAM step, "
             f"{t_lm:.3f} s for one LM iteration (25 lanes: {walls['cuda'][0]:.3f}, "
             f"{walls['cuda'][2]:.3f})")
-        del data, theta0
+        del data, theta0, s
 
         # (b) the recovery stage from the archived trained weights, (c) the oracle
-        # and weak arms: the card's selections against the CPU's and the archive
-        data, _, mags = s.lane_inputs(lanes, 100)
-        theta_t, loss_t = (torch.as_tensor(a, device=device) for a in (theta_tr, loss_tr))
-        card_sel = {}
-        for name, fn, i in (
-                ("recover_stage", lambda: s.recover_stage(theta_t, data, loss_t, mags), 3),
-                ("oracle_stage", lambda: s.oracle_stage(data, mags), 2),
-                ("weak_stage", lambda: s.weak_stage(data, mags), 2)):
-            out, secs = timed(fn)
-            card_sel[name] = (out[i].cpu().numpy() != 0, out[i + 1].cpu().numpy() != 0, secs)
+        # and weak arms: the card's selections against the CPU's and the archive,
+        # the three stages side by side in workers on the card
+        card_sel = {name: card_pool.submit(_study_supports, str(device), name, lanes, theta_tr,
+                                           loss_tr) for name in STUDY_STAGES}
+        card_sel = {name: f.result() for name, f in card_sel.items()}
         cpu_sel = {name: f.result() for name, f in cpu_sel.items()}
         losses["cpu"], walls["cpu"] = cpu_train.result()
     finally:
         pool.shutdown(cancel_futures=True)
+        card_pool.shutdown(cancel_futures=True)
     la, lb, ll = losses["cuda"]
     finite = all(bool(torch.isfinite(x).all()) for x in (la, lb, ll))
     ok = finite and bool((lb <= la).all()) and bool((ll <= lb).all())
@@ -2097,6 +2141,224 @@ def phase_sde_bsde(device, card):
         raise AssertionError("phase 15 launched a fused RHS kernel; its paths reach none")
 
 
+RT_SHAPE = (128, 2, 128)
+
+
+def _recover_unsharded(device, theta, data, loss, mags):
+    """Phase 16 (d)'s unsharded recover stage, in a worker process on
+    ``device`` beside the sharded run: ``(outputs on the host, seconds)``."""
+    import torch
+
+    s = _study_stages(device)
+    args = [torch.as_tensor(a, device=device) for a in (theta, data, loss, mags)]
+    if args[0].is_cuda:
+        _sync()
+    t0 = time.perf_counter()
+    out = [o.cpu() for o in s.recover_stage(*args)]
+    return out, time.perf_counter() - t0
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_pair(fn, mesh):
+    """``fn(None)`` and ``fn(mesh)``, with the host seconds of each (the card
+    synchronised around each)."""
+    out, secs = [], []
+    for m in (None, mesh):
+        _sync()
+        t0 = time.perf_counter()
+        out.append(fn(m))
+        _sync()
+        secs.append(time.perf_counter() - t0)
+    return out, secs
+
+
+def phase_parallel(device, card):
+    """Phase 16: slice H.1 (see the module docstring)."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    import torch.distributed as dist
+    import universal_differential_equations_torch as ude
+    from universal_differential_equations_torch import deepbsde
+    from universal_differential_equations_torch.ensemble import ensemble_run
+    from universal_differential_equations_torch.examples import hjb_100d
+    from universal_differential_equations_torch.examples import run_loops as rl
+    from universal_differential_equations_torch.models import climate_datagen as dg
+    from universal_differential_equations_torch.models import lotka_volterra as lv
+    from universal_differential_equations_torch.ops import stencil
+    from universal_differential_equations_torch.parallel import (
+        ensemble_mesh,
+        initialize_distributed,
+        process_count,
+    )
+    from universal_differential_equations_torch.utils import profiling
+
+    stencil.launches = stencil.tangent_launches = stencil.generic_launches = 0
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    dry = pool = None
+    try:
+        initialize_distributed(f"localhost:{_free_port()}", 1, 0, device=device)
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        _check(dist.get_backend() == backend and process_count() == 1,
+               f"[parallel] one-rank process group: backend {dist.get_backend()}, "
+               f"{process_count()} rank")
+        mesh = ensemble_mesh(device=device)
+        xmesh = ensemble_mesh(axis="x", device=device)
+
+        # the timings first, on a quiet host: with and without the mesh, in turns
+        prob, alg = hjb_100d.hjb_problem(device)
+        g = torch.Generator().manual_seed(0)
+        params = {"u0": alg.u0_net.init(g, device=device),
+                  "grad": alg.grad_net.init(g, device=device)}
+        timing = {}
+        for n in (20, 50):
+            zn = torch.randn((100, n, 100), generator=torch.Generator().manual_seed(n)).to(device)
+            for m in (None, mesh, mesh, None):
+                step, _ = deepbsde.make_train_step(prob, alg, prob.x0, params, n, mesh=m)
+                st = profiling.benchmark(step, zn, repeats=10, warmup=1)
+                timing.setdefault((n, m is not None), []).append(st["median_s"])
+        for n in (20, 50):
+            plain, sharded = min(timing[(n, False)]), min(timing[(n, True)])
+            log(f"[parallel c] deep-BSDE s per iteration at n_steps {n}: {plain * 1e3:.2f} ms "
+                f"without the mesh, {sharded * 1e3:.2f} ms with it (one-rank NCCL; medians of "
+                f"10, best of 2 alternated runs each; overhead {(sharded - plain) * 1e3:+.2f} "
+                f"ms) on {card}")
+        for bc in ("periodic", "rigid_lid"):
+            ms = {False: [], True: []}
+            for m in (None, xmesh, xmesh, None):
+                ms[m is not None].append(dg.rt_step_seconds(RT_SHAPE, repeats=5, bc=bc, mesh=m,
+                                                            device=device) * 1e3)
+            log(f"[parallel e] RT ms per step {RT_SHAPE} bc={bc}: {min(ms[False]):.3f} ms "
+                f"without the mesh, {min(ms[True]):.3f} ms with it (CUDA events, best of 5, "
+                f"2 alternated runs each) on {card}")
+
+        # the gloo dry run on the host's CPU, and (d)'s unsharded run in a
+        # worker on the card, beside the checks
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        dry = subprocess.Popen([sys.executable, "-m", f"{PKG}.parallel.dryrun", "2"],
+                               cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True)
+        pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+        pool.submit(_warm_study, str(device))
+
+        # (d) run_loops' recover stage on one chunk of the JAX study's lanes,
+        # sharded here while the worker runs it unsharded
+        st = rl.build_stages(device=device, mesh=mesh)
+        data_l, theta0, mags = st.lane_inputs(torch.arange(rl.CHUNK).numpy(), 100)
+        theta, _ = st.adam_stage(theta0, data_l, steps=5)
+        loss = torch.full((rl.CHUNK,), 1e-4, device=device)
+        ref_f = pool.submit(_recover_unsharded, str(device),
+                            *(x.cpu().numpy() for x in (theta, data_l, loss, mags)))
+        _sync()
+        t0 = time.perf_counter()
+        rec = [o.cpu() for o in st.recover_stage(theta, data_l, loss, mags)]
+        t_sharded = time.perf_counter() - t0
+
+        # (a) ensemble_run over 64 LV lanes
+        ts = torch.linspace(0.0, 3.0, 31, dtype=f32, device=device)
+        p = lv.P_TRUE.to(device, f32)
+        z = torch.rand((64, 2), generator=torch.Generator().manual_seed(16), dtype=f32)
+        u0s = (lv.U0.to(f32) * (1.0 + 0.1 * (2.0 * z - 1.0))).to(device)
+
+        def run(x0):
+            sol = ude.solve(ude.ODEProblem(lv.lotka_rhs, x0, (0.0, 3.0), p), ude.Tsit5(),
+                            saveat=ts, rtol=1e-6, atol=1e-6, adjoint=ude.NoAdjoint())
+            return sol.ys, sol.success
+
+        (ref, got), secs = _mesh_pair(
+            lambda m: ensemble_run(run, u0s, mesh=m, sharded=m is not None), mesh)
+        r = _rel(got.outputs, ref.outputs)
+        _check(got.num_success == 64 and torch.equal(got.success, ref.success) and r <= 1e-6,
+               f"[parallel a] ensemble_run(sharded=True) over 64 LV lanes on the one-rank mesh: "
+               f"{got.num_success} succeed, rel {r:.1e} to unsharded (1e-6); "
+               f"{secs[1]:.3f} s against {secs[0]:.3f} s")
+
+        # (b) multiple_shoot, loss and gradient
+        ts_ms = torch.linspace(0.0, 1.6, 17, dtype=f32, device=device)
+        data = ude.solve(ude.ODEProblem(lv.lotka_rhs, lv.U0.to(device, f32), (0.0, 1.6), p),
+                         ude.Tsit5(), saveat=ts_ms, rtol=1e-5, atol=1e-7,
+                         adjoint=ude.NoAdjoint()).ys
+
+        def shoot(m):
+            return torch.func.grad_and_value(lambda q: ude.multiple_shoot(
+                q, data, ts_ms, lv.lotka_rhs, group_size=3, continuity_term=10.0, rtol=1e-4,
+                atol=1e-6, max_steps=64, mesh=m))(p * 1.1)
+
+        ((g0, l0), (g1, l1)), _ = _mesh_pair(shoot, mesh)
+        r = max(_rel(l1, l0), _rel(g1, g0))
+        _check(bool(torch.isfinite(g1).all()) and r <= 1e-6,
+               f"[parallel b] multiple_shoot(mesh=) loss {float(l1):.6f} and its torch.func.grad "
+               f"(8 segments) rel {r:.1e} to unsharded (1e-6)")
+
+        # (c) deep-BSDE at the HJB's width: 5 iterations on the same draws
+        normals = torch.randn((5, 100, 20, 100), generator=torch.Generator().manual_seed(17))
+        losses = []
+        for m in (None, mesh):
+            step, _ = deepbsde.make_train_step(prob, alg, prob.x0, params, 20, mesh=m)
+            losses.append(torch.stack([step(normals[i].to(device)) for i in range(5)]))
+        r = _rel(losses[1], losses[0])
+        _check(bool(torch.isfinite(losses[1]).all()) and r <= 1e-5,
+               f"[parallel c] deep-BSDE d = 100, m = 100, n_steps = 20: 5 iterations on the mesh, "
+               f"losses rel {r:.1e} to unsharded (1e-5)")
+
+        # (e) one RT chunk at 128x2x128, both boundary treatments
+        for bc in ("periodic", "rigid_lid"):
+            outs = []
+            for m in (None, xmesh):
+                state, _, chunk, _ = dg._rt_stepper(RT_SHAPE, (1.0, 2 / 128, 1.0), 1e-4, 1e-4,
+                                                    1.0, 10, torch.Generator().manual_seed(4),
+                                                    f32, mesh=m, bc=bc, device=device)
+                outs.append(chunk(state, torch.tensor(2e-3, device=device)))
+            r = max(_rel(a, b) for a, b in zip(outs[1][0], outs[0][0]))
+            _check(r <= 5e-5 and _rel(outs[1][1], outs[0][1]) <= 1e-5,
+                   f"[parallel e] RT chunk {RT_SHAPE} bc={bc} (10 Heun/Leray steps) on the "
+                   f"x-decomposed one-rank mesh: fields rel {r:.1e} to unsharded (5e-5), umax "
+                   f"{float(outs[1][1]):.4e}")
+        rec_ref, t_ref = ref_f.result()
+        same = all(torch.equal(a, b) or (a.dtype != torch.bool and _rel(a, b) <= 1e-6)
+                   for a, b in zip(rec, rec_ref))
+        _check(same, f"[parallel d] run_loops recover stage (the study's judge: K_SEL "
+                     f"{rl.K_SEL}, refit budget {rl.REFIT_ITERS}, top {rl.REFIT_TOP}), one "
+                     f"chunk of {rl.CHUNK} lanes split over the mesh: selections equal "
+                     f"unsharded, coefficients within 1e-6; {t_sharded:.2f} s sharded here, "
+                     f"{t_ref:.2f} s unsharded in the worker beside it")
+        t_card = time.perf_counter() - t_phase
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        if pool is not None:
+            pool.shutdown(cancel_futures=True)
+        if dry is not None:
+            try:
+                out, _ = dry.communicate(timeout=240)
+            finally:
+                if dry.poll() is None:
+                    dry.kill()
+                    dry.communicate()
+    lines = [line for line in out.splitlines() if line.startswith("dryrun_multichip(2)")]
+    for line in lines:
+        log(f"[parallel f] {line}")
+    if dry.returncode != 0 or len(lines) != 6:
+        raise AssertionError(f"dryrun_multichip(2) on gloo CPU ranks failed (rc "
+                             f"{dry.returncode}):\n{out[-3000:]}")
+    launched = (stencil.launches, stencil.tangent_launches, stencil.generic_launches)
+    log(f"[parallel] fused RHS kernel launches during phase 16: A {launched[0]}, B "
+        f"{launched[1]}, runtime-width {launched[2]} (this path runs no hand-written kernel); "
+        f"card work {t_card:.1f} s; phase wall {time.perf_counter() - t_phase:.1f} s")
+    if any(launched):
+        raise AssertionError("phase 16 launched a fused RHS kernel; its paths reach none")
+
+
 def main():
     if not (ROOT / PKG).is_dir():
         print(f"chip_smoke.py: the package {PKG}/ is not beside this script", file=sys.stderr)
@@ -2123,6 +2385,7 @@ def main():
     phase_climate(device, card)
     phase_stiff_dae(device, card)
     phase_sde_bsde(device, card)
+    phase_parallel(device, card)
     log(f"[total] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     # each kernel at the main path's shape: N = 26, and T = 465 directions

@@ -9,14 +9,20 @@ velocities equals JAX's for both vertical boundary treatments, to 1e-10 in
 float64 and 1e-4 relative in float32; the whole RT generator and the forced
 tracer (``advection_diffusion_3d``, N = 16) give JAX's save times and
 profiles; ``coarse_grain``, the step timers, the JLD2 reader (on a tiny
-HDF5 file in the Oceananigans layout) and the ``mesh=`` refusal.
+HDF5 file in the Oceananigans layout); and the ``mesh=`` generators on 2
+and 4 gloo ranks against the single-rank runs, to the JAX tests' bounds
+(``tests/test_climate_datagen.py:150``, ``:164``, ``:181``), with one case of
+a single x-plane per rank (the ranks run ``torch_rank_cases``, a module
+without JAX).
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_rank_cases import RT, TRACER, climate_generators
 
 from universal_differential_equations_torch.models import climate_datagen as td
+from universal_differential_equations_torch.parallel import launch
 from universal_differential_equations_tpu.models import climate_datagen as jd
 
 torch.set_num_threads(1)
@@ -134,11 +140,25 @@ def test_step_timers_return_positive_seconds_on_the_cpu():
 
 
 def test_mesh_waits_for_the_parallel_slice():
-    for fn in (lambda: td.rayleigh_taylor_3d(N=(8, 2, 8), mesh=object(), device="cpu"),
-               lambda: td.advection_diffusion_3d(N=8, mesh=object(), device="cpu"),
-               lambda: td.tracer_step_seconds(N=8, mesh=object(), device="cpu")):
-        with pytest.raises(NotImplementedError, match="slice H"):
-            fn()
+    # the mesh is ported (several ranks: the sharded tests below): on a
+    # one-rank gloo mesh the generators equal the unsharded runs, a grid the
+    # mesh does not divide and a mesh axis it lacks raise
+    from universal_differential_equations_torch.parallel import ensemble_mesh
+
+    kw = dict(N=(8, 2, 8), end_time=0.05, key=torch.Generator().manual_seed(1), device="cpu")
+    ref = td.rayleigh_taylor_3d(**kw)[2]
+    ref_c = td.advection_diffusion_3d(N=8, end_time=0.01, device="cpu")[1]
+    mesh = ensemble_mesh(axis="x", device="cpu")
+    try:
+        got = td.rayleigh_taylor_3d(mesh=mesh, **{**kw, "key": torch.Generator().manual_seed(1)})[2]
+        got_c = td.advection_diffusion_3d(N=8, end_time=0.01, mesh=mesh, device="cpu")[1]
+        assert 0.0 < td.tracer_step_seconds(N=8, ni=2, repeats=1, mesh=mesh, device="cpu") < 1.0
+        with pytest.raises(ValueError, match="mesh axis 'y'"):
+            td.advection_diffusion_3d(N=8, mesh=mesh, mesh_axis="y", device="cpu")
+    finally:
+        torch.distributed.destroy_process_group()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=5e-5)
+    np.testing.assert_allclose(got_c, ref_c, rtol=0, atol=5e-6)
 
 
 def test_load_oceananigans_averages_equals_jax(tmp_path):
@@ -158,3 +178,49 @@ def test_load_oceananigans_averages_equals_jax(tmp_path):
         assert a.dtype == np.float32
         np.testing.assert_array_equal(a, b)
     assert (np.diff(out_t[0]) > 0).all() and out_t[2].shape == (4, 12)
+
+
+@pytest.fixture(scope="module")
+def sharded():
+    """``{ws: [rank 0's results, ...]}`` for 2 and 4 ranks, and the
+    single-rank references."""
+    runs = {ws: launch.spawn(climate_generators, ws, ws, True, timeout=600) for ws in (2, 4)}
+    seed = lambda k: torch.Generator().manual_seed(k)  # noqa: E731
+    refs = dict(
+        tracer=td.advection_diffusion_3d(key=seed(0), device="cpu", **TRACER),
+        rt=td.rayleigh_taylor_3d(key=seed(1), device="cpu", **RT),
+        rigid=td.rayleigh_taylor_3d(key=seed(1), bc="rigid_lid", device="cpu", **RT))
+    for ws in (2, 4):
+        refs[("plane", ws)] = td.rayleigh_taylor_3d(key=seed(1), device="cpu",
+                                                    **{**RT, "N": (ws, 2, 16)})
+    return runs, refs
+
+
+@pytest.mark.parametrize("ws", [2, 4])
+def test_advection_diffusion_sharded_matches_single_rank(sharded, ws):
+    ts0, p0 = sharded[1]["tracer"]
+    for rank_out in sharded[0][ws]:  # every rank returns the profiles
+        ts1, p1 = rank_out["tracer"]
+        np.testing.assert_allclose(ts1, ts0, rtol=1e-6)
+        np.testing.assert_allclose(p1, p0, atol=5e-6)
+
+
+@pytest.mark.parametrize("bc", ["rt", "rigid"])
+@pytest.mark.parametrize("ws", [2, 4])
+def test_rayleigh_taylor_sharded_matches_single_rank(sharded, ws, bc):
+    ts0, z0, b0 = sharded[1][bc]
+    for rank_out in sharded[0][ws]:
+        ts1, z1, b1 = rank_out[bc]
+        np.testing.assert_allclose(ts1, ts0, rtol=1e-6)
+        np.testing.assert_array_equal(z1, z0)
+        np.testing.assert_allclose(b1, b0, atol=5e-5)
+
+
+@pytest.mark.parametrize("ws", [2, 4])
+def test_rayleigh_taylor_one_x_plane_per_rank(sharded, ws):
+    ts0, _, b0 = sharded[1][("plane", ws)]
+    for rank_out in sharded[0][ws]:
+        ts1, _, b1 = rank_out["plane"]
+        np.testing.assert_allclose(ts1, ts0, rtol=1e-6)
+        np.testing.assert_allclose(b1, b0, atol=5e-5)
+        assert np.isfinite(b1).all()

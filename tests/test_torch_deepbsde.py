@@ -140,7 +140,19 @@ def test_deep_bsde_hjb_small_trains_with_the_port_generator():
 
 
 def test_mesh_raises_naming_slice_h():
+    # the mesh is ported (several ranks: tests/test_torch_parallel.py): on a
+    # one-rank gloo mesh the trainer equals the unsharded run
+    from universal_differential_equations_torch.parallel import ensemble_mesh
+
     _, talg = _nets()
     prob = _problem(torch, tb, "scalar", torch.zeros(D, dtype=F64))
-    with pytest.raises(NotImplementedError, match="slice H"):
-        tb.solve_terminal_pde(prob, talg, mesh=object())
+    kw = dict(trajectories=8, n_steps=4, maxiters=3, pabstol=0.0, dtype=F64)
+    ref = tb.solve_terminal_pde(prob, talg, torch.Generator().manual_seed(1), **kw)
+    mesh = ensemble_mesh(device="cpu")
+    try:
+        got = tb.solve_terminal_pde(prob, talg, torch.Generator().manual_seed(1), mesh=mesh,
+                                    **kw)
+    finally:
+        torch.distributed.destroy_process_group()
+    np.testing.assert_allclose(got.losses.numpy(), ref.losses.numpy(), rtol=1e-12)
+    assert float(got.u0) == pytest.approx(float(ref.u0), rel=1e-12)

@@ -4,7 +4,8 @@ Mirrors ``tests/test_shooting_ensemble_io.py``'s checkpoint and ensemble
 tests, and holds the two packages to one on-disk format: an archive written
 by either loads in the other with equal leaves, and both write the same
 sidecar ``paths``.  The 8-lane Lotka-Volterra ensemble equals JAX's in
-float64 (states to 1e-10 relative, the same success mask).
+float64 (states to 1e-10 relative, the same success mask); ``sharded=True``
+on one rank equals the unsharded run.
 """
 import json
 
@@ -134,8 +135,16 @@ def test_ensemble_run_masks_failures():
     assert res.success.tolist() == [True, True, True, False]
     assert res.num_success == 3
     assert res.successful(res.outputs).shape == (3, 1)
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        ensemble_run(run, torch.zeros(2, dtype=F64), sharded=True)
+    # sharded=True without a process group: a one-rank gloo mesh of its own,
+    # the same lanes and mask (several ranks: tests/test_torch_parallel.py)
+    try:
+        sharded = ensemble_run(run, torch.tensor([-1.0, -0.5, 0.0, 5.0], dtype=F64),
+                               sharded=True)
+        assert torch.distributed.get_backend() == "gloo"
+    finally:
+        torch.distributed.destroy_process_group()
+    assert torch.equal(sharded.success, res.success)
+    assert torch.equal(sharded.outputs[res.success], res.outputs[res.success])
 
 
 def test_noise_schedule_matches_reference():

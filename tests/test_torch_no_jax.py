@@ -29,5 +29,7 @@ def test_every_module_of_the_port_imports_without_jax():
     assert res["leaked"] == []
     pkg = "universal_differential_equations_torch."
     for name in ("deepbsde.solver", "solvers.sde", "utils.profiling", "examples.hjb_100d",
-                 "ops.stencil", "solvers.bdf", "examples.run_loops"):
+                 "ops.stencil", "solvers.bdf", "examples.run_loops", "parallel",
+                 "parallel.mesh", "parallel.distributed", "parallel.collectives",
+                 "parallel.launch", "parallel.dryrun"):
         assert pkg + name in res["names"]

@@ -130,3 +130,70 @@ def test_neural_ode_layer_and_its_gradient_match_jax():
     g_t = torch.func.grad(lambda x: layer_t(unravel(x), torch.tensor(u0)).sum())(flat)
     assert bool(torch.isfinite(g_t).all())
     np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), rtol=1e-6, atol=1e-12)
+
+
+# the public names of slice H.1, each against its JAX name
+
+
+def test_utils_reexports_match_jax():
+    import universal_differential_equations_torch.utils as tu
+    import universal_differential_equations_tpu.utils as ju
+
+    for name in ("benchmark", "StepTimer", "trace", "ravel_pytree"):
+        assert name in ju.__all__ and name in tu.__all__ and callable(getattr(tu, name))
+    tree = {"b": [torch.ones(2), torch.arange(3.0)], "a": torch.full((2, 2), 5.0)}
+    flat_t, unravel = tu.ravel_pytree(tree)
+    flat_j, _ = ju.ravel_pytree(jax.tree.map(lambda x: jnp.asarray(x.numpy()), tree))
+    np.testing.assert_array_equal(flat_t.numpy(), np.asarray(flat_j))
+    assert torch.equal(unravel(flat_t)["b"][1], tree["b"][1])
+    timer = tu.StepTimer()
+    timer.tick()
+    stats = tu.benchmark(lambda: torch.ones(3).sum(), repeats=2, warmup=0)
+    assert set(stats) == set(ju.benchmark(lambda: jnp.ones(3).sum(), repeats=2, warmup=0))
+
+
+def test_gaussian_rbf_is_rbf_like_jax():
+    from universal_differential_equations_torch import nn as tnn
+    from universal_differential_equations_tpu import nn as jnn
+
+    x = np.linspace(-2.0, 2.0, 9)
+    assert tnn.gaussian_rbf is tnn.rbf and jnn.gaussian_rbf is jnn.rbf
+    np.testing.assert_allclose(tnn.gaussian_rbf(torch.as_tensor(x)).numpy(),
+                               np.asarray(jnn.gaussian_rbf(jnp.asarray(x))), rtol=1e-15)
+
+
+def test_solution_stats_and_dense_span_match_jax():
+    def lv(t, u, p):
+        return (jnp if isinstance(u, jax.Array) else torch).stack(
+            [p[0] * u[0] - p[1] * u[0] * u[1], p[2] * u[0] * u[1] - p[3] * u[1]])
+
+    p = np.array([1.3, 0.9, 0.8, 1.8])
+    u0 = np.array([0.44249296, 4.6280594])
+    for span in ((0.0, 3.0), (3.0, 0.5)):
+        st = tude.solve(tude.ODEProblem(lv, torch.as_tensor(u0), span, torch.as_tensor(p)),
+                        tude.Tsit5(), rtol=1e-8, atol=1e-10, dense=True,
+                        adjoint=tude.NoAdjoint())
+        sj = jude.solve(jude.ODEProblem(lv, jnp.asarray(u0), span, jnp.asarray(p)),
+                        jude.Tsit5(), rtol=1e-8, atol=1e-10, dense=True,
+                        adjoint=jude.NoAdjoint())
+        assert {k: int(v) for k, v in st.stats.items()} == {k: int(v)
+                                                            for k, v in sj.stats.items()}
+        assert float(st.dense.t0) == float(sj.dense.t0) == span[0]
+        assert float(st.dense.t1) == pytest.approx(float(sj.dense.t1), rel=1e-14)
+        assert float(st.dense.t1) == pytest.approx(span[1], rel=1e-12)
+
+
+def test_chain_flat_view_matches_jax_layout():
+    jnet = jude.MLP([2, 4, 3, 1], activation="tanh")
+    tnet = tude.MLP([2, 4, 3, 1], activation="tanh")
+    jflat, junravel = jnet.flat_init(jax.random.PRNGKey(0))
+    tflat, tunravel = tnet.flat_init(torch.Generator().manual_seed(0), F64)
+    assert tflat.shape == jflat.shape and tflat.dtype == F64
+    # the same flat vector means the same network in both packages
+    theta = np.random.default_rng(1).standard_normal(jflat.shape[0])
+    x = np.array([0.3, -0.7])
+    yt = tnet.make_apply_flat(torch.Generator(), F64)(torch.as_tensor(theta), torch.as_tensor(x))
+    yj = jnet.make_apply_flat(jax.random.PRNGKey(0))(jnp.asarray(theta, jnp.float32),
+                                                     jnp.asarray(x, jnp.float32))
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=1e-5)
+    np.testing.assert_array_equal(travel(tunravel(tflat))[0].numpy(), tflat.numpy())

@@ -35,6 +35,15 @@ class DenseInterpolation:
     direction: torch.Tensor  # 0-d, +1.0 or -1.0
     nodes: int = 2
 
+    @property
+    def t0(self):
+        return self.ts[0] * self.direction
+
+    @property
+    def t1(self):
+        cap = self.ts.shape[0]
+        return self.ts[torch.clamp(self.num_points - 1, 0, cap - 1)] * self.direction
+
     def _interval(self, t):
         """Interval index for each internal (direction-scaled) time in ``t``."""
         cap = self.ts.shape[0]
@@ -182,3 +191,8 @@ class Solution:
         if self._unravel is None:
             return flat
         return self._unravel(flat)
+
+    @property
+    def stats(self):
+        return dict(num_accepted=self.num_accepted, num_rejected=self.num_rejected,
+                    num_rhs_evals=self.num_rhs_evals)

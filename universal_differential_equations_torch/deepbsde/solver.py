@@ -21,6 +21,12 @@ reads its loss to the host once, for the early stop.
 Noise: by default from a ``torch.Generator``; ``normals=`` supplies the
 standard normals of every draw instead (the JAX draws, in the parity
 tests).  Everything runs on ``x0``'s device in the caller's ``dtype``.
+
+``mesh=`` shards the trajectories over a ``parallel.Mesh``: every rank
+draws the global batch of normals from the same generator and keeps its
+rows, so the draws do not depend on placement (as in the JAX package); the
+loss is the global mean, and one ``all_reduce`` per iteration adds up the
+flat gradient and the loss before ADAM.
 """
 from __future__ import annotations
 
@@ -29,10 +35,12 @@ import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 from torch.func import vmap
 
 from ..core.problem import SDEProblem
 from ..flatten_util import tree_flatten
+from ..parallel.mesh import replicate, shard_ensemble
 from ..solvers.sde import AdaptiveEM
 from ..utils.profiling import StepTimer
 
@@ -92,7 +100,7 @@ def _device_generator(generator, device):
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def make_train_step(problem, alg, x0, params, n_steps, learning_rate=0.03):
+def make_train_step(problem, alg, x0, params, n_steps, learning_rate=0.03, mesh=None):
     """``(step, current)`` for ADAM on the deep-BSDE loss at ``n_steps``.
 
     ``step(normals)`` runs one iteration on standard normals of shape
@@ -100,6 +108,11 @@ def make_train_step(problem, alg, x0, params, n_steps, learning_rate=0.03):
     before the update (a device tensor; nothing is read to the host);
     ``current()`` returns the parameters.  A fresh ``torch.optim.Adam`` per
     call, as the JAX trainer initialises optax's state per stage.
+
+    With ``mesh``, ``step`` takes this rank's rows of the global (M,
+    n_steps, d) normals, every rank of the mesh calls it, and it returns
+    the global mean loss; the gradient is the global one (one
+    ``all_reduce`` of the flat gradient and the loss).
     """
     t0, t1 = problem.tspan
     dtype, device = x0.dtype, x0.device
@@ -118,7 +131,7 @@ def make_train_step(problem, alg, x0, params, n_steps, learning_rate=0.03):
     leaves = [leaf.detach().clone().requires_grad_(True) for leaf in leaves]
     opt = torch.optim.Adam(leaves, lr=learning_rate)
 
-    def loss_fn(p, dws):
+    def loss_fn(p, dws, m_global):
         m = dws.shape[0]
         x = x0.expand(m, -1)
         u = alg.u0_net.apply(p["u0"], x0)[0].expand(m)
@@ -128,12 +141,21 @@ def make_train_step(problem, alg, x0, params, n_steps, learning_rate=0.03):
             f, mu, sigma_dw = per_path(t)(x, u, z, dw)
             u = u - f * dt + (z * dw).sum(-1)
             x = x + mu * dt + sigma_dw
-        return torch.mean((u - g_b(x)) ** 2)
+        err = (u - g_b(x)) ** 2
+        return torch.mean(err) if m_global is None else torch.sum(err) / m_global
 
     def step(normals):
         opt.zero_grad(set_to_none=True)
-        loss = loss_fn(build(leaves), normals * sqrt_dt)
+        m_global = None if mesh is None else normals.shape[0] * mesh.size
+        loss = loss_fn(build(leaves), normals * sqrt_dt, m_global)
         loss.backward()
+        if mesh is not None:
+            # one collective: the flat gradient and this rank's share of the loss
+            flat = torch.cat([leaf.grad.reshape(-1) for leaf in leaves] + [loss.detach()[None]])
+            dist.all_reduce(flat, group=mesh.group)
+            for leaf, g in zip(leaves, flat[:-1].split([leaf.numel() for leaf in leaves])):
+                leaf.grad.copy_(g.view_as(leaf))
+            loss = flat[-1]
         opt.step()
         return loss.detach()
 
@@ -184,20 +206,29 @@ def solve_terminal_pde(
     (m, n_steps, d), and the pilot's as ``("pilot", 0, (pilot_paths,
     1024, d))``.
 
-    ``mesh`` (trajectories sharded over devices) needs the port of
-    ``parallel/`` (slice H) and raises ``NotImplementedError``.
+    ``mesh``: an optional ``parallel.Mesh`` (e.g.
+    ``parallel.ensemble_mesh()``); every rank of the mesh makes the call.
+    The trajectory batch is split over its ranks, each drawing the global
+    normals and keeping its rows, and the parameters are replicated (rank
+    0's); each iteration's gradient and loss are summed across the ranks in
+    one ``all_reduce``.  ``trajectories`` must be a multiple of the mesh
+    size.  The pilot (``adaptive=True``) runs whole on every rank.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "solve_terminal_pde(mesh=...) needs the port of parallel/ (slice H); "
-            "train the trajectories on one device with mesh=None")
     x0 = torch.as_tensor(problem.x0).to(dtype)
+    if mesh is not None:
+        mesh.check(x0, "x0")
+        mesh.member()
+        if trajectories % mesh.size:
+            raise ValueError(f"trajectories={trajectories} must be a multiple of the mesh "
+                             f"size {mesh.size}")
     device = x0.device
     d = x0.shape[0]
     generator = torch.Generator().manual_seed(0) if generator is None else generator
     if params is None:
         params = {"u0": alg.u0_net.init(generator, dtype, device),
                   "grad": alg.grad_net.init(generator, dtype, device)}
+    if mesh is not None:
+        params = replicate(params, mesh)
     if normals is None:
         g_train = _device_generator(generator, device)
         g_pilot = _device_generator(generator, device)
@@ -212,13 +243,17 @@ def solve_terminal_pde(
             raise ValueError(f"normals{(stage, it)} has shape {tuple(z.shape)}, not {shape}")
         return z
 
+    def draw_paths(stage, it, n_steps):
+        z = draw(stage, it, (trajectories, n_steps, d))
+        return z if mesh is None else shard_ensemble(z, mesh, mesh.axis_names[0])
+
     def train_stage(params, n_steps, stage):
-        step, current = make_train_step(problem, alg, x0, params, n_steps, learning_rate)
+        step, current = make_train_step(problem, alg, x0, params, n_steps, learning_rate, mesh)
         timer = StepTimer()
         losses = []
         converged = False
         for it in range(maxiters):
-            losses.append(float(step(draw(stage, it, (trajectories, n_steps, d)))))
+            losses.append(float(step(draw_paths(stage, it, n_steps))))
             timer.tick()
             if verbose and it % 50 == 0:
                 print(f"  bsde iter {it} (n={n_steps}): loss {losses[-1]:.5f}")

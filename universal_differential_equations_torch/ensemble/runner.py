@@ -10,7 +10,10 @@ run carries a success flag instead of an exception, and failed runs are
 excluded from aggregation as the reference marks failures ``Inf`` and skips
 them (``loop_evaluation.jl:45-53``).
 
-The mesh (``sharded=True``) waits for the port of ``parallel/``.
+``sharded=True`` splits the lanes over the ranks of a mesh
+(``parallel.ensemble_mesh``): each rank runs its contiguous share as the
+same one ``vmap``, and the results are gathered back to the global batch on
+every rank, as the JAX package's sharded arrays are global.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ from typing import Callable
 import torch
 
 from ..flatten_util import tree_flatten
+from ..parallel.collectives import gather_tree
+from ..parallel.mesh import ensemble_mesh, shard_ensemble
 
 __all__ = ["EnsembleResult", "ensemble_run", "noise_schedule"]
 
@@ -45,15 +50,23 @@ def ensemble_run(run_fn: Callable, batch_args, *, mesh=None,
     ``run_fn(args) -> (outputs, ok)`` where ``ok`` is a 0-d bool tensor (for
     example ``solution.success``).  A run succeeds when it reports ok and
     every output leaf is finite (NaN isolation in place of try/catch).
+
+    With ``sharded=True`` the batch is split over ``mesh`` (default
+    ``parallel.ensemble_mesh()`` on the batch's device type); every rank of
+    the mesh makes the call and gets the whole result.  ``mesh`` is ignored
+    without ``sharded``, as in the JAX package.
     """
-    if sharded or mesh is not None:
-        raise NotImplementedError(
-            "ensemble_run(sharded=True, mesh=...) needs the port of parallel/ "
-            "(slice H); run the lanes on one device with sharded=False")
+    if sharded:
+        leaves = tree_flatten(batch_args)[0]
+        n_runs = leaves[0].shape[0]
+        mesh = mesh or ensemble_mesh(device=leaves[0].device)
+        batch_args = shard_ensemble(batch_args, mesh, mesh.axis_names[0])
     outputs, ok = torch.func.vmap(run_fn)(batch_args)
     success = ok.to(torch.bool)
     for leaf in tree_flatten(outputs)[0]:
         success = success & torch.isfinite(leaf).reshape(leaf.shape[0], -1).all(-1)
+    if sharded:
+        outputs, success = gather_tree((outputs, success), mesh, n_runs)
     return EnsembleResult(outputs=outputs, success=success)
 
 

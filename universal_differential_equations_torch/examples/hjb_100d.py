@@ -15,11 +15,19 @@ until u(0, x0) stops moving.
 
 Everything runs on ``--device`` (default ``cuda``) in float32; the initial
 weights come from ``torch.Generator().manual_seed(0)`` and the Monte-Carlo
-draws from seed 7.  One card runs all 100 trajectories: ``--no-mesh`` is
-accepted and changes nothing; ``--plot`` waits for the port of ``viz.py``
-(slice H).  The last line of the output is a JSON object with the row
-``hjb100d_rel_l2`` and, beside it, ``train_wall_s`` and the seconds per
-iteration (the trainer's ``StepTimer`` over its last 50 iterations).
+draws from seed 7.  The trajectories are the distributed axis: with several
+ranks (``torchrun``, with the ``UDE_DISTRIBUTED`` opt-in) the 100 paths are
+split over the largest number of ranks that divides 100, as the JAX script
+splits them over devices::
+
+    UDE_DISTRIBUTED=1 torchrun --nproc-per-node 4 -m \\
+        universal_differential_equations_torch.examples.hjb_100d --quick
+
+One process runs them all on its card; ``--no-mesh`` turns the split off.
+``--plot`` waits for the port of ``viz.py`` (slice H).  The last line of the
+output (rank 0's) is a JSON object with the row ``hjb100d_rel_l2`` and,
+beside it, ``train_wall_s`` and the seconds per iteration (the trainer's
+``StepTimer`` over its last 50 iterations).
 """
 from __future__ import annotations
 
@@ -36,6 +44,12 @@ from universal_differential_equations_torch.deepbsde import (
     TerminalPDEProblem,
     mc_analytical_hjb,
     solve_terminal_pde,
+)
+from universal_differential_equations_torch.parallel import (
+    ensemble_mesh,
+    initialize_distributed,
+    process_count,
+    process_rank,
 )
 from universal_differential_equations_torch.utils import card_name
 
@@ -57,24 +71,40 @@ def hjb_problem(device, dtype=torch.float32):
     return prob, alg
 
 
+def auto_mesh(device, m=100):
+    """The trajectory mesh of ``mesh="auto"``: the first k ranks, k the
+    largest divisor of ``m`` not above the rank count; None at one rank, and
+    on a rank outside the mesh (which then runs every trajectory itself)."""
+    n_mesh = max(k for k in range(1, process_count() + 1) if m % k == 0)
+    if n_mesh == 1:
+        return None
+    mesh = ensemble_mesh(n_mesh, device=device)
+    return mesh if mesh.index is not None else None
+
+
 def main(quick=False, plot=False, adaptive=False, mesh="auto", device="cuda"):
     """The case study; raises ``AssertionError`` after printing the result
-    where rel-L2 is not below 0.2."""
+    where rel-L2 is not below 0.2.  ``mesh``: ``"auto"`` (:func:`auto_mesh`),
+    None, or a ``parallel.Mesh`` whose ranks all make the call."""
     if plot:
         raise NotImplementedError("--plot waits for the port of viz.py (slice H)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
     if mesh == "auto":
-        mesh = None  # one device: the 100 trajectories stay together
+        mesh = auto_mesh(device)
+    lead = process_rank() == 0
     prob, alg = hjb_problem(device)
     print(f"deep-BSDE HJB d={D} on {card_name(device)}", flush=True)
+    if mesh is not None and lead:
+        print(f"sharding 100 trajectories over a {mesh.size}-rank "
+              f"'{mesh.axis_names[0]}' mesh", flush=True)
     t0 = time.perf_counter()
     res = solve_terminal_pde(
         prob, alg, torch.Generator().manual_seed(0), trajectories=100, mesh=mesh,
         n_steps=20 if quick else 50,
         maxiters=1400 if quick else 2500,
-        learning_rate=0.03, pabstol=1e-2, verbose=True,
+        learning_rate=0.03, pabstol=1e-2, verbose=lead,
         adaptive=adaptive, sde_abstol=2e-2, sde_reltol=2e-2,
         max_refinements=1 if quick else 2,
     )
@@ -94,13 +124,15 @@ def main(quick=False, plot=False, adaptive=False, mesh="auto", device="cuda"):
           f"{res.s_per_iter:.4f} s over the last 50), final loss {float(res.losses[-1]):.4f}, "
           f"converged={res.converged}")
     out = dict(metric="hjb100d_rel_l2", value=rel_l2, unit="rel-L2", baseline=0.2,
-               device=card_name(device), quick=quick, adaptive=adaptive, u0=u0,
+               device=card_name(device), ranks=1 if mesh is None else mesh.size,
+               quick=quick, adaptive=adaptive, u0=u0,
                analytical=analytical, iterations=iters, n_steps=res.n_steps,
                train_wall_s=wall, s_per_iter=wall / iters, s_per_iter_last50=res.s_per_iter,
                mc_s=mc_s, final_loss=float(res.losses[-1]), converged=res.converged)
     if device.type == "cuda":
         out["peak_mib"] = torch.cuda.max_memory_allocated(device) / 2**20
-    print(json.dumps(out), flush=True)
+    if lead:
+        print(json.dumps(out), flush=True)
     assert rel_l2 < 0.2, "HJB accuracy assertion failed"
     return out
 
@@ -114,9 +146,10 @@ if __name__ == "__main__":
                     help="error-controlled time grid (the LambaEM role): "
                          "AdaptiveEM pilot + pinned-grid refinement")
     ap.add_argument("--no-mesh", action="store_true",
-                    help="no trajectory sharding (the only mode on one device)")
+                    help="no trajectory sharding over the job's ranks")
     ap.add_argument("--device", default="cuda",
                     help="torch device for every stage (default cuda)")
     _a = ap.parse_args()
+    initialize_distributed(device=_a.device)
     main(quick=_a.quick, plot=_a.plot, adaptive=_a.adaptive,
          mesh=None if _a.no_mesh else "auto", device=_a.device)

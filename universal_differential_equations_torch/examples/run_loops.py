@@ -1,7 +1,7 @@
 """Noise-robustness recovery study on the port: 500 Lotka-Volterra recoveries as lanes.
 
     python -m universal_differential_equations_torch.examples.run_loops [--runs-per-level N] \\
-        [--device cuda] [--lanes jax|torch] [--results DIR] [--chunk L] [--fresh]
+        [--device cuda] [--lanes jax|torch] [--results DIR] [--chunk L] [--fresh] [--mesh]
 
 The port of ``examples/lotka_volterra/run_loops.py`` (``run_loops.jl`` +
 ``loop_recoveries.jl`` + ``loop_evaluation.jl``), with its constants and its
@@ -37,8 +37,18 @@ Lane inputs (``--lanes``):
 Every stage runs on ``--device`` (default ``cuda``; ``--device cpu`` must be
 asked for) in float32, as the JAX study does.  Results and per-chunk resume
 groups go to ``--results`` (default ``build/lv_study/`` in the checkout).
-Not ported: the plots (``--plot``, ``--plot-only``) and the device mesh
-(``--mesh``), which wait for the port's ``viz`` and ``parallel`` slice.
+
+``--mesh`` splits each chunk's lanes over the ranks of a mesh (ensemble
+data parallelism): each rank runs its lanes through every stage, with its
+own CUDA-graph captures, and the results are gathered so that rank 0 writes
+the archive an unsharded run writes.  One process makes a one-rank mesh;
+several cards run under ``torchrun`` with the opt-in::
+
+    UDE_DISTRIBUTED=1 torchrun --nproc-per-node 4 -m \\
+        universal_differential_equations_torch.examples.run_loops --mesh
+
+Not ported: the plots (``--plot``, ``--plot-only``), which wait for the
+port's ``viz``.
 """
 from __future__ import annotations
 
@@ -59,6 +69,12 @@ from universal_differential_equations_torch.core.integrate import integrate_fixe
 from universal_differential_equations_torch.flatten_util import ravel_pytree
 from universal_differential_equations_torch.io import KeyedArchive
 from universal_differential_equations_torch.models import lotka_volterra as lv
+from universal_differential_equations_torch.parallel import (
+    ensemble_mesh,
+    initialize_distributed,
+    shard_ensemble,
+)
+from universal_differential_equations_torch.parallel.collectives import gather_tree
 from universal_differential_equations_torch.sindy.optimizers import STLSQ
 from universal_differential_equations_torch.solvers import Tsit5
 from universal_differential_equations_torch.train import (
@@ -164,18 +180,48 @@ def judge_tag(cfg=(), extras=()):
     return h.hexdigest()[:8]
 
 
+def lanes_sharded(stage, mesh):
+    """``stage`` over a mesh's ranks: the lanes (leading dimension of every
+    tensor argument) are split over the ranks, each rank runs its share, and
+    the results are gathered back to the global batch on every rank.  A lane
+    count that does not divide by the mesh size is padded with copies of
+    the first lane, as the JAX study pads its trailing chunk, and the
+    copies are dropped."""
+    if mesh is None:
+        return stage
+
+    def run(*lanes, **kw):
+        n = lanes[0].shape[0]
+        pad = (-n) % mesh.size
+        if pad:
+            lanes = [torch.cat([x, x[:1].expand(pad, *x.shape[1:])]) for x in lanes]
+        out = stage(*shard_ensemble(list(lanes), mesh, mesh.axis_names[0]), **kw)
+        return tuple(o[:n] for o in gather_tree(tuple(out), mesh))
+
+    return run
+
+
 def build_stages(weak_widths=(9, 13, 17, 21, 25, 29), bfgs_rounds=None, lm_rounds=None,
-                 device="cuda", lanes="jax"):
+                 device="cuda", lanes="jax", mesh=None):
     """The study's lane stages (train → judge → SR3 arms, and the
     training-free arms), on ``device`` in float32.
 
     Returns a namespace with the stages, ``pipeline``, the lane inputs
     (``lane_inputs``) and the study's shared data and constants.  Every
     stage takes lanes on the leading dimension.
+
+    ``mesh``: an optional ``parallel.Mesh`` on ``device``'s type.
+    ``pipeline`` and the selection stages (recover, oracle, weak, combo,
+    playoff) then split their lanes over its ranks and gather the results
+    (:func:`lanes_sharded`; every rank makes each call): runs are
+    independent, so no other collective is needed.  The training stages
+    alone stay per rank.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
+    if mesh is not None:
+        mesh.check(torch.empty(0, device=device), "device")
     bfgs_rounds = BFGS_ROUNDS if bfgs_rounds is None else bfgs_rounds
     lm_rounds = LM_ROUNDS if lm_rounds is None else lm_rounds
     if lanes == "jax":
@@ -470,9 +516,14 @@ def build_stages(weak_widths=(9, 13, 17, 21, 25, 29), bfgs_rounds=None, lm_round
         ts=ts, X=X, x_mean=x_mean, weak_widths=weak_widths, device=device,
         lane_inputs=lane_inputs, mean_loss=mean_loss, loss_and_grad=loss_and_grad,
         lane_jac=lane_jac, adam_stage=adam_stage, bfgs_round=bfgs_round, lm_round=lm_round,
-        recover_stage=recover_stage, oracle_stage=oracle_stage, weak_stage=weak_stage,
-        make_weak_stage=make_weak_stage, combo_stage=combo_stage, playoff_stage=playoff_stage,
-        pipeline=pipeline, probe_stats=probe_stats, n_params=flat0.numel())
+        recover_stage=lanes_sharded(recover_stage, mesh),
+        oracle_stage=lanes_sharded(oracle_stage, mesh),
+        weak_stage=lanes_sharded(weak_stage, mesh),
+        make_weak_stage=lambda *a, **k: lanes_sharded(make_weak_stage(*a, **k), mesh),
+        combo_stage=lanes_sharded(combo_stage, mesh),
+        playoff_stage=lanes_sharded(playoff_stage, mesh),
+        pipeline=lanes_sharded(pipeline, mesh), mesh=mesh, probe_stats=probe_stats,
+        n_params=flat0.numel())
 
 
 def _numpy(out):
@@ -546,25 +597,40 @@ def attribution(device="cuda", lanes="jax", results=None, chunk=CHUNK):
     return ex, co
 
 
+def cli_mesh(chunk, device):
+    """``--mesh``'s mesh and chunk: a mesh over every rank of the job (one
+    rank without a launcher), and ``chunk`` where given, else the largest
+    multiple of the rank count ≤ ``CHUNK`` (at least the rank count), as
+    the JAX script rounds it."""
+    initialize_distributed(device=device)
+    mesh = ensemble_mesh(device=device)
+    return mesh, chunk if chunk is not None else max(CHUNK // mesh.size, 1) * mesh.size
+
+
 def main(runs_per_level=100, plot=False, resume=True, archive=True, mesh=None, chunk=CHUNK,
          assert_gates=True, oracle=True, weak=True, bfgs_rounds=None, lm_rounds=None,
          device="cuda", lanes="jax", results=None):
     """Drive the full noise-robustness study; returns the JAX study's
     summary dict.  ``bfgs_rounds``/``lm_rounds`` override the training
-    schedule (then neither ``archive`` nor ``resume`` may be set)."""
+    schedule (then neither ``archive`` nor ``resume`` may be set).
+    ``mesh`` splits every chunk over its ranks (see :func:`build_stages`;
+    every rank makes the call and gets the summary); ``chunk`` must divide
+    by the mesh size, and only the mesh's first rank writes the archive."""
     if plot:
         raise NotImplementedError("plots wait for the port's viz slice (slice H)")
-    if mesh is not None:
-        raise NotImplementedError("the device mesh waits for the port's parallel slice "
-                                  "(slice H)")
+    if mesh is not None and chunk % mesh.size:
+        raise ValueError(f"chunk {chunk} must be a multiple of the mesh size {mesh.size}")
+    writer = mesh is None or mesh.index == 0
     bfgs_rounds = BFGS_ROUNDS if bfgs_rounds is None else bfgs_rounds
     lm_rounds = LM_ROUNDS if lm_rounds is None else lm_rounds
     n_levels = len(NOISE_LEVELS)
     n_runs = n_levels * runs_per_level
-    st = build_stages(bfgs_rounds=bfgs_rounds, lm_rounds=lm_rounds, device=device, lanes=lanes)
+    st = build_stages(bfgs_rounds=bfgs_rounds, lm_rounds=lm_rounds, device=device, lanes=lanes,
+                      mesh=mesh)
     device = st.device
     print(f"{n_runs} recoveries ({n_levels} levels × {runs_per_level}); chunks of {chunk} "
-          f"lanes, {bfgs_rounds}×{BFGS_ITERS_PER_ROUND} BFGS + {lm_rounds} LM rounds; "
+          f"lanes" + (f" split over {mesh.size} ranks" if mesh is not None else "")
+          + f", {bfgs_rounds}×{BFGS_ITERS_PER_ROUND} BFGS + {lm_rounds} LM rounds; "
           f"{lanes} lanes on {card_name(device)}", flush=True)
     if (bfgs_rounds, lm_rounds) != (BFGS_ROUNDS, LM_ROUNDS):
         # chunk groups do not encode the schedule: a non-default run must
@@ -595,7 +661,7 @@ def main(runs_per_level=100, plot=False, resume=True, archive=True, mesh=None, c
         data, theta0, mags = st.lane_inputs(idx, runs_per_level)
         rec = _numpy(st.pipeline(data, mags, theta0, probe=len(results_c) == 0))
         results_c.append(rec)
-        if archive:
+        if archive and writer:
             arch.save(gname, **dict(zip(CHUNK_KEYS, rec)))
         print(f"  {c0 + n_expect}/{n_runs} lanes done ({time.perf_counter() - t0:.0f}s)",
               flush=True)
@@ -625,7 +691,7 @@ def main(runs_per_level=100, plot=False, resume=True, archive=True, mesh=None, c
                 outs.append(_numpy(st.pipeline(data, mags, theta0)))
             parts2 = tuple(np.concatenate([o[i] for o in outs]) for i in range(len(CHUNK_KEYS)))
             restart_wall = time.perf_counter() - t_restart
-            if archive:
+            if archive and writer:
                 arch.save(gname, idx=idx_fail, **dict(zip(CHUNK_KEYS, parts2)))
         take = parts2[2].astype(bool)
         sel = idx_fail[take]
@@ -671,7 +737,7 @@ def main(runs_per_level=100, plot=False, resume=True, archive=True, mesh=None, c
             out = _numpy(stage(data, mags, *[torch.as_tensor(e[idx], device=device)
                                              for e in extras]))
             parts.append(out)
-            if archive:
+            if archive and writer:
                 arch.save(gname, **dict(zip(akeys, out)))
             print(f"  {label} {c0 + n_expect}/{n_runs} lanes "
                   f"({time.perf_counter() - t_p:.0f}s)", flush=True)
@@ -700,7 +766,7 @@ def main(runs_per_level=100, plot=False, resume=True, archive=True, mesh=None, c
                   f"{contains_c[lvl].mean():9.1%} | {exact_c[lvl].mean():11.1%} | "
                   f"{exact[lvl].mean():7.1%}")
 
-    if archive:
+    if archive and writer:
         arm = lambda name, e, co_, a, b: ({} if e is None else {  # noqa: E731
             f"exact_{name}": e, f"contains_{name}": co_, f"coef1_{name}": a, f"coef2_{name}": b})
         arch.save("loop_study", exact=exact,
@@ -745,7 +811,10 @@ if __name__ == "__main__":
     ap.add_argument("--runs-per-level", type=int, default=100)
     ap.add_argument("--plot", action="store_true", help="not ported (slice H)")
     ap.add_argument("--plot-only", action="store_true", help="not ported (slice H)")
-    ap.add_argument("--mesh", action="store_true", help="not ported (slice H)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="split each chunk's lanes over every rank of the job (one rank "
+                         "without torchrun); the chunk defaults to the largest multiple "
+                         f"of the rank count ≤ {CHUNK}")
     ap.add_argument("--theta-samples", action="store_true",
                     help="train 5 study lanes per noise level and archive their trained "
                          "parameter vectors")
@@ -754,7 +823,7 @@ if __name__ == "__main__":
                          "structure injected as a third candidate")
     ap.add_argument("--fresh", action="store_true",
                     help="discard the per-chunk resume groups and recompute")
-    ap.add_argument("--chunk", type=int, default=CHUNK,
+    ap.add_argument("--chunk", type=int, default=None,
                     help=f"lanes per chunk (default {CHUNK})")
     ap.add_argument("--device", default="cuda", help="torch device (default cuda)")
     ap.add_argument("--lanes", choices=("jax", "torch"), default="jax",
@@ -763,9 +832,10 @@ if __name__ == "__main__":
                     help="directory of the resume groups and the archive "
                          "(default build/lv_study/ in the checkout)")
     args = ap.parse_args()
-    if args.plot or args.plot_only or args.mesh:
-        raise NotImplementedError("--plot, --plot-only and --mesh wait for the port's viz and "
-                                  "parallel slice (slice H)")
+    if args.plot or args.plot_only:
+        raise NotImplementedError("--plot and --plot-only wait for the port's viz slice "
+                                  "(slice H)")
+    mesh, chunk = cli_mesh(args.chunk, args.device) if args.mesh else (None, args.chunk or CHUNK)
     if args.fresh:
         for pat in ("loop_chunk_*.npz", "loop_restart_*.npz", "loop_oracle_*.npz",
                     "loop_weak_*.npz", "loop_combo_*.npz"):
@@ -774,11 +844,10 @@ if __name__ == "__main__":
     if args.theta_samples:
         sample_thetas(device=args.device, lanes=args.lanes, results=args.results)
     elif args.attribution:
-        attribution(device=args.device, lanes=args.lanes, results=args.results,
-                    chunk=args.chunk)
+        attribution(device=args.device, lanes=args.lanes, results=args.results, chunk=chunk)
     else:
-        out = main(runs_per_level=args.runs_per_level, chunk=args.chunk, device=args.device,
-                   lanes=args.lanes, results=args.results)
+        out = main(runs_per_level=args.runs_per_level, chunk=chunk, device=args.device,
+                   lanes=args.lanes, results=args.results, mesh=mesh)
         out.pop("err")
         out.pop("aicc")
         print(json.dumps(out), flush=True)

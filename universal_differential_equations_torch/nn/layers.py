@@ -20,13 +20,18 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rbf", "Dense", "Chain", "MLP", "StencilConv1D", "FourierBasis", "TensorLayer"]
+from ..flatten_util import ravel_pytree
+
+__all__ = ["rbf", "gaussian_rbf", "Dense", "Chain", "MLP", "StencilConv1D", "FourierBasis",
+           "TensorLayer"]
 
 
 def rbf(x):
     """Gaussian radial basis activation ``exp(-x^2)`` (``scenario_1.jl:59``)."""
     return torch.exp(-(x * x))
 
+
+gaussian_rbf = rbf
 
 _ACTIVATIONS = {
     "rbf": rbf,
@@ -91,6 +96,22 @@ class Chain:
 
     def __call__(self, params, x):
         return self.apply(params, x)
+
+    # FastChain-style flat-parameter view
+    def flat_init(self, generator, dtype=torch.float32, device=None):
+        """``(flat, unravel)`` of freshly drawn parameters."""
+        return ravel_pytree(self.init(generator, dtype, device))
+
+    def make_apply_flat(self, generator, dtype=torch.float32, device=None):
+        """``apply_flat(theta, x)``: the chain on a flat parameter vector laid
+        out as :meth:`flat_init` lays it out (``generator`` only fixes the
+        layout's shapes)."""
+        _, unravel = self.flat_init(generator, dtype, device)
+
+        def apply_flat(theta, x):
+            return self.apply(unravel(theta), x)
+
+        return apply_flat
 
     def as_matmul_params(self, params):
         """Dense-chain params as a ``[(w, b), ...]`` list of (h_in, h_out)

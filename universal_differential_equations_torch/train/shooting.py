@@ -8,9 +8,11 @@ starts at its data point, and all segments are solved together by one
 segments (a lane that finishes early waits, unchanged, for the others).  A
 continuity penalty ties each segment's end to the next segment's start.
 
-The JAX version can shard the segment batch over a device mesh
-(``mesh``/``mesh_axis``); the port has no ``parallel/`` layer yet, so it
-runs every segment on the data's device.
+With ``mesh`` the segments are split over the mesh's ranks, this domain's
+sequence-parallel axis: each rank solves its contiguous share in the same
+one ``vmap`` and the loss's sums go through ``parallel.collectives.psum``
+(the JAX package's GSPMD ``psum``); the parameters enter through
+``grad_psum``, so the gradient is the global one on every rank.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 from ..adjoint.sensitivity import DiscreteAdjoint
 from ..api import solve
 from ..core.problem import ODEProblem
+from ..parallel.collectives import grad_psum, psum
 from ..solvers.runge_kutta import Tsit5
 
 __all__ = ["multiple_shoot", "shooting_windows"]
@@ -55,6 +58,8 @@ def multiple_shoot(
     adjoint=None,
     max_steps: int = 256,
     loss_fn: Optional[Callable] = None,
+    mesh=None,
+    mesh_axis: Optional[str] = None,
 ):
     """Segmented trajectory loss (``hudson_bay.jl:115-117``).
 
@@ -66,7 +71,15 @@ def multiple_shoot(
       adjoint: defaults to ``DiscreteAdjoint()``; any adjoint works under
         the segment ``vmap`` (``ForwardSensitivity`` for ``jacfwd``).
       loss_fn: per-segment data loss ``(pred, target, mask) -> scalar``;
-        defaults to masked squared error.
+        defaults to masked squared error.  Under a mesh it sees this rank's
+        segments and the ranks' values are summed, so it must be a sum over
+        segments, as the default is.
+      mesh / mesh_axis: an optional ``parallel.Mesh`` (+ axis name, default
+        its axis): the segments are split over its ranks, every rank of the
+        mesh makes the call and gets the global loss.  A segment count that
+        does not divide by the mesh size is padded with masked segments, as
+        GSPMD pads in the JAX package.  Works under ``torch.autograd``,
+        ``torch.func.grad`` and ``torch.func.jacfwd``.
 
     Returns scalar loss = Σ segment data loss + continuity_term · Σ
     ‖pred_end(i) − data_start(i+1)‖² + a failed-segment penalty.
@@ -76,7 +89,17 @@ def multiple_shoot(
     data = torch.as_tensor(data)
     ts = torch.as_tensor(ts, device=data.device)
     idx, mask = shooting_windows(data.shape[0], group_size, device=data.device)
-
+    n_seg = idx.shape[0]
+    if mesh is not None:
+        mesh.axis(mesh_axis)
+        mesh.check(data, "data")
+        per = -(-n_seg // mesh.size)
+        seg = mesh.member() * per + torch.arange(per, device=data.device)  # global index
+        # segments past the last are padding: a copy of the last, masked out
+        real = seg < n_seg
+        mask = mask[seg.clamp(max=n_seg - 1)] * real[:, None]
+        idx = idx[seg.clamp(max=n_seg - 1)]
+        params = grad_psum(params, mesh)
     seg_ts = ts[idx]  # (n_seg, g)
     seg_data = data[idx]  # (n_seg, g, dim)
     u0s = seg_data[:, 0, :]
@@ -97,10 +120,16 @@ def multiple_shoot(
             return torch.sum(m[..., None] * (pred - target) ** 2)
 
     data_loss = loss_fn(preds, seg_data, mask)
-    # continuity: end of segment i vs data start of segment i+1
-    ends = preds[:-1, -1, :]
-    starts = seg_data[1:, 0, :]
-    seg_valid = mask[:-1, -1]  # only fully-covered segment ends
+    # continuity: end of segment i vs data start of segment i+1, for the
+    # fully covered segment ends
+    if mesh is None:
+        ends, starts, seg_valid = preds[:-1, -1, :], seg_data[1:, 0, :], mask[:-1, -1]
+    else:
+        has_next = (seg < n_seg - 1)[:, None]
+        ends = torch.where(has_next, preds[:, -1, :], 0.0)
+        # a window's last point is the next window's first
+        starts = torch.where(has_next, data[idx[:, -1]], 0.0)
+        seg_valid = mask[:, -1]
     continuity = torch.sum(seg_valid[:, None] * (ends - starts) ** 2)
     # A segment that exhausts max_steps clamps its dense-output tail: finite
     # but wrong values.  A large finite penalty per failed segment makes line
@@ -109,6 +138,14 @@ def multiple_shoot(
     # (the differentiable sum of tolerance-normalized local errors) gives
     # first-order optimizers a restoring direction.
     failed = (~seg_ok).to(data_loss.dtype)
-    restoring = torch.sum(failed * seg_err.to(data_loss.dtype)) / max_steps
-    failure_penalty = 1e4 * torch.sum(failed) + restoring
-    return data_loss + continuity_term * continuity + failure_penalty
+    seg_err = seg_err.to(data_loss.dtype)
+    if mesh is not None:
+        failed = torch.where(real, failed, 0.0)
+        seg_err = torch.where(real, seg_err, 0.0)
+    restoring = torch.sum(failed * seg_err) / max_steps
+    n_failed = torch.sum(failed)
+    if mesh is not None:
+        data_loss, continuity, n_failed, restoring = psum(
+            torch.stack([data_loss, continuity.to(data_loss.dtype), n_failed, restoring]),
+            mesh).unbind()
+    return data_loss + continuity_term * continuity + (1e4 * n_failed + restoring)

@@ -2,10 +2,11 @@
 
 Port of ``rescale_problem`` and the tree helpers (``flat_dim``,
 ``zeros_like_tree``, ``tree_where``, ``tree_add``, ``tree_scale``) from
-``universal_differential_equations_tpu/utils``, and ``card_name``, the device
-line that the pipelines and the benchmark print.  The rest of that module
-(device probes, the XLA compilation cache) serves the TPU and has no
-counterpart here; ``profiling`` holds the timing helpers.
+``universal_differential_equations_tpu/utils``, its re-exports
+(``ravel_pytree`` and ``profiling``'s ``benchmark``, ``trace`` and
+``StepTimer``), and ``card_name``, the device line that the pipelines and
+the benchmark print.  The rest of that module (device probes, the XLA
+compilation cache) serves the TPU and has no counterpart here.
 """
 from __future__ import annotations
 
@@ -14,10 +15,11 @@ import subprocess
 
 import torch
 
-from ..flatten_util import tree_flatten
+from ..flatten_util import ravel_pytree, tree_flatten
+from .profiling import StepTimer, benchmark, trace
 
 __all__ = ["card_name", "flat_dim", "rescale_problem", "tree_add", "tree_scale", "tree_where",
-           "zeros_like_tree"]
+           "zeros_like_tree", "ravel_pytree", "benchmark", "trace", "StepTimer"]
 
 
 def card_name(device):
