@@ -245,6 +245,26 @@ Phases, in order; any failure raises and the script exits non-zero:
     worker start.  The
     group is closed before the last lines; kernels A and B launch 0 times.
 
+17. Slice H.2, ``viz.py`` and every example's figures (``--plot``):
+    (a) the host's matplotlib and Pillow versions, or that they are absent;
+    (b) Fisher-KPP ``mlp``: ``fisher_kpp.train`` with 3 ADAM steps, one LM
+        iteration and the training dashboard (``make_dashboard``) as the
+        ADAM warmup's ``fit`` callback, which writes ``dashboard.png``;
+        kernel A launches under ADAM, A and B under LM; ``write_plots``'
+        arrays (``learned_figures``): the reaction curve on 101 constant
+        fields within 1e-5 of the plain RHS's on the card, the learned field
+        within 1e-4 of the CPU's; the four figures;
+    (c) ``run_loops``' ``loop_trajectories`` solves (the truth and six
+        recovered models of the JAX archive ``loop_study.npz``, read only)
+        within 1e-4 of the CPU's, relative to each run's largest value; the
+        study's eight figures from that archive (``plot_archive``);
+    (d) scenario 3's reaction curves and the climate column's flux curve,
+        card against CPU within 1e-5; every other script's figure function
+        on CUDA tensors made from a seed: each JAX file name written and
+        non-empty, the GIF included.
+    Where matplotlib or Pillow is absent the arrays of (b)–(d) are checked
+    and the phase says that it rendered no figure; kernel A launches > 0.
+
 The line before the last is ``{"kernels": [...]}``, one entry per kernel with
 its bound on the card (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s float32); the
 last line is ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -2359,6 +2379,216 @@ def phase_parallel(device, card):
         raise AssertionError("phase 16 launched a fused RHS kernel; its paths reach none")
 
 
+PLOT_NAMES = {  # the JAX scripts' figure files, by port script
+    "lv_scenario_1": {"scenario_1_fit.pdf", "scenario_1_missing_term.pdf", "scenario_1_loss.pdf",
+                      "scenario_1_extrapolation.pdf"},
+    "lv_scenario_2": {"scenario_2_fit.pdf"},
+    "lv_scenario_3": {"scenario_3_truth.pdf", "scenario_3_learned.pdf",
+                      "scenario_3_reaction.pdf"},
+    "hudson_bay": {"hudson_bay_fit.pdf", "hudson_bay_extrapolation.pdf"},
+    "seir_exposure": {"seir_exposure_term.pdf", "seir_extrapolation.pdf"},
+    "hjb_100d": {"hjb_loss.pdf"},
+    "fenep": {"fenep_test_response.pdf"},
+    "climate_neural_pde": {"npde_flux.pdf", "npde_rollout.pdf"},
+    "climate_neural_pde_data": {"npde_data_truth.pdf", "npde_data_rollout.pdf"},
+    "climate_training_rt": {"rt_data.pdf", "rt_rollout.pdf", "rt_profiles.pdf", "rt_rollout.gif"},
+    "climate_data_generation": {"rt_averages.pdf"},
+}
+STUDY_NAMES = {"loop_success_exact.pdf", "loop_success_contains.pdf", "loop_coefficients.pdf",
+               "loop_losses.pdf", "loop_err_aicc.pdf", "loop_loss_histories.pdf",
+               "loop_sparsity.pdf", "loop_trajectories.pdf"}
+
+
+def _figure_calls(device, curves):
+    """Each other script's figure function on CUDA tensors made from a seed
+    (numpy where the script hands its function numpy; ``curves``, the
+    reaction and flux curves phase 17 (d) computed on the card):
+    ``{script: call(outdir)}``."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    ex = {name: importlib.import_module(f"{PKG}.examples.{name}") for name in PLOT_NAMES}
+    rng = np.random.default_rng(17)
+
+    def t(*shape, lo=0.0, hi=1.0):
+        return torch.as_tensor(rng.uniform(lo, hi, shape), dtype=torch.float32, device=device)
+
+    def cuda(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    z = np.linspace(-0.5, 0.5, 64)
+    return {
+        "lv_scenario_1": lambda out: ex["lv_scenario_1"].write_plots(
+            cuda(np.linspace(0.0, 3.0, 31)), t(31, 2, lo=1, hi=5), t(31, 2, lo=1, hi=5),
+            t(31, 2), t(200), cuda(np.linspace(0.0, 50.0, 501)), t(501, 2), t(501, 2), 3.0, out),
+        "lv_scenario_2": lambda out: ex["lv_scenario_2"].write_plots(
+            cuda(np.arange(0.0, 6.01, 0.05)), t(121, 2), cuda(np.linspace(0.0, 6.0, 61)),
+            t(61, 2), t(), out),
+        "lv_scenario_3": lambda out: ex["lv_scenario_3"].write_plots(
+            t(11, 26), t(11, 26), curves["lv_scenario_3"], out),
+        "hudson_bay": lambda out: ex["hudson_bay"].write_plots(
+            cuda(np.arange(21.0)), t(21, 2), t(41, 2), t(201, 2), out),
+        "seir_exposure": lambda out: ex["seir_exposure"].write_plots(
+            cuda(np.arange(22.0)), t(22), t(22), cuda(np.arange(61.0)), t(61, 7), t(61, 7), out),
+        "hjb_100d": lambda out: ex["hjb_100d"].write_plots(t(1400), 4.59, 4.60, 0.002, out),
+        "fenep": lambda out: ex["fenep"].write_plots(
+            cuda(np.linspace(0.0, 10.0, 100)), t(100), rng.random(100), rng.random(100), out),
+        "climate_neural_pde": lambda out: ex["climate_neural_pde"].write_plots(
+            curves["climate_neural_pde"], t(30, 30), out),
+        "climate_neural_pde_data": lambda out: ex["climate_neural_pde_data"].write_plots(
+            z, 32, (0.0, 4.0), t(41, 30), t(41, 30), out),
+        "climate_training_rt": lambda out: ex["climate_training_rt"].write_plots(
+            np.arange(21) * 0.1, z, rng.random((21, 16)), rng.random((21, 16)), 16, out),
+        "climate_data_generation": lambda out: ex["climate_data_generation"].write_plots(
+            np.arange(41) * 0.1, z, rng.random((41, 64)), out),
+    }
+
+
+def phase_plots(device, card, ts, ys):
+    """Phase 17: ``viz.py`` and every example's figures on the card."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from universal_differential_equations_torch.examples import fisher_kpp as fx
+    from universal_differential_equations_torch.examples import run_loops as rl
+    from universal_differential_equations_torch.flatten_util import tree_flatten
+    from universal_differential_equations_torch.models import fisher_kpp as fk
+    from universal_differential_equations_torch.ops import stencil
+
+    t_phase = time.perf_counter()
+    # (a) the host's plotting libraries: matplotlib renders, Pillow writes the GIF
+    versions = {}
+    for lib in ("matplotlib", "PIL"):
+        if importlib.util.find_spec(lib) is not None:
+            versions[lib] = __import__(lib).__version__
+    render = "matplotlib" in versions and "PIL" in versions
+    log(f"[plots a] matplotlib {versions.get('matplotlib', 'absent')}, Pillow "
+        f"{versions.get('PIL', 'absent')} on this host"
+        + ("" if render else ": the arrays are checked on the card, no figure is rendered"))
+    tmp = Path(tempfile.mkdtemp(prefix="ude_plots_"))
+    written = {}
+
+    def names(case):
+        return {p.name for p in (tmp / case).iterdir() if p.stat().st_size > 0}
+
+    # (b) Fisher-KPP mlp: the dashboard as the ADAM warmup's callback, one LM
+    # iteration, then the figures' arrays through kernel A against the plain
+    # RHS on the card and against the CPU
+    launches = []
+    rhs, params0 = fk.make_model(torch.Generator().manual_seed(0), "mlp", device=device)
+    dashboard = fx.make_dashboard("mlp", tmp / "fisher_kpp") if render else None
+
+    def on_stage(name, value):
+        launches.append((name, stencil.launches, stencil.tangent_launches))
+        stencil.launches = stencil.tangent_launches = stencil.generic_launches = 0
+
+    stencil.launches = stencil.tangent_launches = stencil.generic_launches = 0
+    params, final = fx.train("mlp", params0, fk.make_residuals(rhs, ts, ys), adam_steps=3,
+                             lm_iters=1, refine_steps=0, on_stage=on_stage, dashboard=dashboard)
+    by = {name: (a, b) for name, a, b in launches}
+    dash_ok = dashboard is None or (len(dashboard.steps) >= 1
+                                    and (tmp / "fisher_kpp" / "dashboard.png").exists())
+    _check(by["adam"][0] > 0 and by["lm"][1] > 0 and math.isfinite(final) and dash_ok,
+           f"[plots b] fisher_kpp.train (mlp, 3 ADAM steps, 1 LM iteration) with the dashboard: "
+           f"kernel A {by['adam'][0]} launches under ADAM, A {by['lm'][0]} and B {by['lm'][1]} "
+           f"under LM; loss {final:.6g}; dashboard.png "
+           + (f"written at steps {dashboard.steps}" if dashboard else "not rendered"))
+    stencil.launches = 0
+    pred_k, u_grid, r_k = fx.learned_figures("mlp", ts, ys, params)
+    a_fig = stencil.launches
+    use_fused = fk._use_fused
+    fk._use_fused = lambda u: False
+    try:
+        _, _, r_p = fx.learned_figures("mlp", ts, ys, params)
+    finally:
+        fk._use_fused = use_fused
+    leaves, build = tree_flatten(params)
+    cpu_params = build([leaf.cpu() for leaf in leaves])
+    pred_c, _, _ = fx.learned_figures("mlp", ts.cpu(), ys.cpu(), cpu_params)
+    err_r = float(np.abs(r_k - r_p).max())
+    err_f = float(np.abs(pred_k - pred_c).max())
+    _check(a_fig > 0 and err_r <= 1e-5 and err_f <= 1e-4,
+           f"[plots b] write_plots' arrays (mlp): kernel A {a_fig} launches; reaction curve "
+           f"(101 constant fields) against the plain RHS max |diff| {err_r:.2e} (1e-5); learned "
+           f"field against the CPU's {err_f:.2e} (1e-4)")
+    if render:
+        fx.write_plots("mlp", ts, ys, params, tmp / "fisher_kpp")
+        written["fisher_kpp"] = names("fisher_kpp")
+        expect = {f"mlp_{n}.pdf" for n in ("truth", "learned", "error", "reaction")}
+        _check(written["fisher_kpp"] == expect | {"dashboard.png"},
+               f"[plots b] fisher_kpp figures: {sorted(written['fisher_kpp'])}")
+    a_phase = sum(a for _, a, _ in launches) + a_fig
+
+    # (c) the study's figures from the JAX archive (read only); the truth and
+    # six recovered-model solves of loop_trajectories on the card and the CPU
+    study = ROOT / "examples" / "lotka_volterra" / "results"
+    with np.load(study / "loop_study.npz") as z:
+        exact, c1, c2 = z["exact"], z["coef1"], z["coef2"]
+    flat = exact.ravel().astype(bool)
+    runs = np.concatenate([np.nonzero(flat)[0][:3],
+                           np.nonzero(~flat & np.isfinite(c1[:, rl.I_XY]))[0][:3]])
+    t0 = time.perf_counter()
+    _, truth_k, ys_k = rl.recovered_trajectories(c1, c2, runs, device)
+    s_k = time.perf_counter() - t0
+    _, truth_c, ys_c = rl.recovered_trajectories(c1, c2, runs, "cpu")
+    scale = np.maximum(1.0, np.abs(ys_c).max(axis=(1, 2)))
+    err_t = max(float(np.abs(truth_k - truth_c).max()),
+                float((np.abs(ys_k - ys_c).max(axis=(1, 2)) / scale).max()))
+    _check(err_t <= 1e-4 and np.isfinite(ys_k).all(),
+           f"[plots c] loop_trajectories' solves (runs {runs.tolist()}, float32): card against "
+           f"CPU max |diff| {err_t:.2e} (1e-4, relative to each run's largest value); "
+           f"{s_k:.2f} s on the card")
+    if render:
+        rl.plot_archive(study, outdir=tmp / "lotka_volterra", device=device)
+        written["run_loops"] = names("lotka_volterra")
+        _check(written["run_loops"] == STUDY_NAMES,
+               f"[plots c] run_loops.plot_archive from the JAX archive: {len(STUDY_NAMES)} "
+               f"figures")
+
+    # (d) the other figures' device work, card against CPU: scenario 3's NN
+    # and SINDy reaction curves, the climate column's flux curve; then, where
+    # matplotlib is, every other script's figure function on CUDA tensors
+    from universal_differential_equations_torch.examples import climate_neural_pde as npde
+    from universal_differential_equations_torch.examples import lv_scenario_3 as s3
+
+    curves, err_d = {}, 0.0
+    u = torch.linspace(0.0, 1.0, 64, dtype=torch.float64)[:, None]
+    rec = s3.recover(u, u * (1 - u))
+    flux_data = torch.as_tensor(np.random.default_rng(5).uniform(-1.0, 1.5, (30, 30)),
+                                dtype=torch.float32)
+    for dev in (device, torch.device("cpu")):
+        _, p3, rx = s3.make_model(torch.Generator().manual_seed(s3.SEED), device=dev)
+        _, pn, net = npde.cn.make_neural_rhs(torch.Generator().manual_seed(0), device=dev)
+        got = {"lv_scenario_3": s3.reaction_curves(rx, p3, rec),
+               "climate_neural_pde": npde.flux_curves(net, pn, flux_data.to(dev))}
+        if dev == device:
+            curves = got
+        else:
+            err_d = max(float(np.abs(a - b).max()) for k in got
+                        for a, b in zip(curves[k], got[k]))
+    _check(err_d <= 1e-5, f"[plots d] scenario 3's reaction curves and the climate column's "
+           f"flux curve, card against CPU: max |diff| {err_d:.2e} (1e-5)")
+    if render:
+        for script, call in _figure_calls(device, curves).items():
+            out = tmp / script
+            call(out)
+            written[script] = names(script)
+            _check(written[script] == PLOT_NAMES[script],
+                   f"[plots d] {script}: {sorted(written[script])}")
+    n_files = sum(len(v) for v in written.values())
+    shutil.rmtree(tmp)
+    log(f"[plots] {n_files} figure files written and non-empty (of the JAX scripts' 36)"
+        if render else "[plots] no figure rendered: matplotlib or Pillow is absent on this host")
+    _check(a_phase > 0, f"[plots] kernel A launches in phase 17: {a_phase}; phase wall "
+           f"{time.perf_counter() - t_phase:.1f} s on {card}")
+    return n_files, a_phase
+
+
 def main():
     if not (ROOT / PKG).is_dir():
         print(f"chip_smoke.py: the package {PKG}/ is not beside this script", file=sys.stderr)
@@ -2386,6 +2616,7 @@ def main():
     phase_stiff_dae(device, card)
     phase_sde_bsde(device, card)
     phase_parallel(device, card)
+    phase_plots(device, card, ts, ys)
     log(f"[total] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     # each kernel at the main path's shape: N = 26, and T = 465 directions

@@ -229,7 +229,7 @@ def test_adjoint_cost_counts_equal_jax(column, monkeypatch, adjoint):
                                rtol=1e-6, atol=1e-6 * np.abs(g_ref).max())
 
 
-def test_main_runs_end_to_end_at_a_tiny_budget(capsys):
+def test_main_runs_end_to_end_at_a_tiny_budget(capsys, tmp_path):
     # two ADAM steps and one LM iteration cannot reach the loss gate: main
     # prints its result and raises, naming the failed gate
     with pytest.raises(RuntimeError, match="'loss': False"):
@@ -238,5 +238,19 @@ def test_main_runs_end_to_end_at_a_tiny_budget(capsys):
     for key in ("loss", "adjoint_ms", "rock4_evals", "rock2_evals"):
         assert np.isfinite(out[key])
     assert out["gates"]["rkc1"] and out["gates"]["rock2"] and out["lm_iterations"] == 1
-    with pytest.raises(NotImplementedError, match="slice H"):
-        tx.main(device="cpu", plot=True)
+    # the figures, which that gate keeps main from drawing: the flux curve
+    # equals the JAX script's expression at the same parameters
+    _, p_j, net_j = jcn.make_neural_rhs(jax.random.PRNGKey(0))
+    _, _, net_t = tcn.make_neural_rhs(torch.Generator().manual_seed(0))
+    data = np.random.default_rng(1).uniform(-1.0, 1.5, (30, 30)).astype(np.float32)
+    curves = tx.flux_curves(net_t, params_from_jax(jax.tree.map(np.asarray, p_j)),
+                            torch.as_tensor(data))
+    uu = jnp.linspace(float(data.min()), float(data.max()), 200, dtype=jnp.float32)
+    phi_true = np.asarray(jnp.cos(jnp.sin(uu**3) + jnp.sin(jnp.cos(uu**2))))
+    phi_net = np.asarray(jax.vmap(
+        lambda v: net_j.apply(p_j, jnp.full((30,), v, jnp.float32))[15])(uu))
+    for got, ref in zip(curves, (np.asarray(uu), phi_net - phi_net.mean(),
+                                 phi_true - phi_true.mean())):
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+    tx.write_plots(curves, torch.as_tensor(data), tmp_path)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["npde_flux.pdf", "npde_rollout.pdf"]

@@ -170,12 +170,14 @@ def test_main_runs_end_to_end(monkeypatch, tmp_path):
     monkeypatch.setattr(ex, "OMEGAS", np.array([1.0]))
     monkeypatch.setattr(ex, "CROSSCHECK", ("SDIRK4",))
     monkeypatch.setattr(ex, "OUT_DIR", tmp_path)
-    out = ex.main(device="cpu", steps=2)
+    monkeypatch.setattr(ex, "PLOTS", tmp_path / "plots")
+    out = ex.main(device="cpu", steps=2, plot=True)
     assert out["gates"]["neural_beats_linear"]
     assert out["crosscheck"]["SDIRK4"] < 1e-3
     for arm in ("neural", "linear"):
         assert np.isfinite(out[arm]["train_loss"]) and np.isfinite(out[arm]["test_err"])
     with np.load(tmp_path / "fenep_test_response.npz") as z:
         assert z["exact"].shape == z["neural"].shape == (100,)
-    with pytest.raises(NotImplementedError, match="slice H"):
-        ex.main(device="cpu", plot=True)
+    # --plot: the JAX script's held-out figure
+    assert [p.name for p in (tmp_path / "plots").iterdir()] == ["fenep_test_response.pdf"]
+    assert (tmp_path / "plots" / "fenep_test_response.pdf").stat().st_size > 0

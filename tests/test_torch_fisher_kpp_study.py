@@ -105,7 +105,7 @@ def test_restart_ladder_matches_jax(monkeypatch, variant):
     seeds = []
 
     def attempt(as_params):
-        def stub(seed, v, ts, data, quick=False, hook=None):
+        def stub(seed, v, ts, data, quick=False, hook=None, dashboard=None):
             k = (seed - 7) // 1000
             seeds.append(seed)
             w = [1.15, -2.25, 1.15] if (name == "mlp" and k == 1) else GOOD_W

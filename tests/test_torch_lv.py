@@ -243,3 +243,28 @@ def test_pipeline_refit_and_extrapolation_match_jax(scenario):
 
     np.testing.assert_allclose([per_rec, per_tru], [period(ex_j.ys), period(tr_j.ys)],
                                rtol=1e-12)
+
+
+def test_x64_losses_match_the_jax_x64_script(scenario):
+    # scenario_1.py --x64: the net, ADAM and BFGS in float64, BFGS on ADAM's
+    # loss (rtol = atol = 1e-6) with gtol 1e-10 (scenario_1.py:117-120)
+    ts_t, X_t = torch.tensor(scenario["ts"]), torch.tensor(scenario["X_noisy"])
+    adam_t, bfgs_t, kw = scen.training_losses(scenario["rhs_t"], ts_t, X_t, x64=True)
+    assert kw == dict(gtol=1e-10)
+    loss_j = _jax_loss(scenario["rhs_j"], jnp.asarray(scenario["ts"]),
+                       jnp.asarray(scenario["X_noisy"]), 1e-6)
+    value_j, grad_j = jax.value_and_grad(loss_j)(scenario["p_j"])
+    g_ref = np.concatenate([np.concatenate([np.ravel(layer[k]) for k in sorted(layer)])
+                            for layer in grad_j])
+    for loss_t in (adam_t, bfgs_t):
+        leaves = [{k: v.clone().requires_grad_(True) for k, v in layer.items()}
+                  for layer in scenario["p_t"]]
+        value_t = loss_t(leaves)
+        assert value_t.dtype == F64
+        grads = torch.autograd.grad(value_t, [layer[k] for layer in leaves for k in sorted(layer)])
+        np.testing.assert_allclose(float(value_t), float(value_j), rtol=1e-8)
+        np.testing.assert_allclose(torch.cat([g.reshape(-1) for g in grads]).numpy(), g_ref,
+                                   rtol=1e-6, atol=1e-6 * np.abs(g_ref).max())
+    # the default run: BFGS at 1e-8 with gtol 1e-12
+    _, _, kw32 = scen.training_losses(scenario["rhs_t"], ts_t, X_t, x64=False)
+    assert kw32 == dict(gtol=1e-12)

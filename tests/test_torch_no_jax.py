@@ -31,5 +31,5 @@ def test_every_module_of_the_port_imports_without_jax():
     for name in ("deepbsde.solver", "solvers.sde", "utils.profiling", "examples.hjb_100d",
                  "ops.stencil", "solvers.bdf", "examples.run_loops", "parallel",
                  "parallel.mesh", "parallel.distributed", "parallel.collectives",
-                 "parallel.launch", "parallel.dryrun"):
+                 "parallel.launch", "parallel.dryrun", "viz"):
         assert pkg + name in res["names"]

@@ -1,7 +1,7 @@
 """Climate training-data generation on the port: the forced tracer and the Rayleigh-Taylor slab.
 
     python -m universal_differential_equations_torch.examples.climate_data_generation
-        [--quick] [--full-res] [--bc periodic|rigid_lid] [--device cuda]
+        [--quick] [--full-res] [--bc periodic|rigid_lid] [--plot] [--device cuda]
 
 The port of ``examples/climate/data_generation.py``, the counterparts of the
 reference's Oceananigans runs (``models/climate_datagen.py``):
@@ -22,9 +22,11 @@ averages go to ``build/climate/rt_horizontal_averages[_quick][_rigid_lid].npz``
 (never into ``examples/climate/data/``, which holds the JAX package's
 committed dataset).  Every stage runs on ``--device`` (default ``cuda``);
 the noise comes from ``torch.Generator`` seeds 0 and 1 (the JAX script's
-keys), which draw other numbers than ``jax.random``.  ``--plot`` is not
-ported yet (slice H).  The last line of the output is a JSON object with the
-walls, steps per second and gates.
+keys), which draw other numbers than ``jax.random``.  ``--plot`` writes the
+JAX script's ``rt_averages.pdf`` to ``build/plots/climate/``
+(:func:`write_plots`); it needs matplotlib, imported before the runs.  The
+last line of the output is a JSON object with the walls, steps per second
+and gates.
 """
 from __future__ import annotations
 
@@ -40,9 +42,10 @@ from universal_differential_equations_torch.models.climate_datagen import (
     advection_diffusion_3d,
     rayleigh_taylor_3d,
 )
-from universal_differential_equations_torch.utils import card_name
+from universal_differential_equations_torch.utils import card_name, require_viz
 
 OUT_DIR = Path(__file__).resolve().parents[2] / "build" / "climate"
+PLOTS = Path(__file__).resolve().parents[2] / "build" / "plots" / "climate"
 
 
 def _timed(fn, device):
@@ -55,10 +58,23 @@ def _timed(fn, device):
     return out, time.perf_counter() - t0
 
 
+def write_plots(ts, z, b, outdir=None):
+    """The reference's horizontal-average diagnostic: the RT b̄(z, t) as one
+    diverging z-t field, into ``outdir`` (``PLOTS``)."""
+    from universal_differential_equations_torch import viz
+
+    outdir = Path(PLOTS if outdir is None else outdir)
+    viz.save(viz.plot_field(
+        b.T, (float(ts[0]), float(ts[-1]), float(z[0]), float(z[-1])),
+        title="Rayleigh-Taylor b̄(z, t) horizontal averages", ylabel="z", cbar_label="b̄",
+        diverging=True), outdir / "rt_averages.pdf")
+    print(f"plots written to {outdir}")
+
+
 def main(quick=False, full_res=False, bc="periodic", device="cuda", plot=False,
          out_dir=OUT_DIR):
     if plot:
-        raise NotImplementedError("--plot waits for the port of viz.py (slice H)")
+        require_viz()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
@@ -116,6 +132,8 @@ def main(quick=False, full_res=False, bc="periodic", device="cuda", plot=False,
     if not all(gates.values()):
         print(json.dumps(out), flush=True)
         raise RuntimeError(f"climate data-generation gate failed: {gates}")
+    if plot:
+        write_plots(ts, z, b)
     return out
 
 
@@ -124,7 +142,8 @@ if __name__ == "__main__":
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--full-res", action="store_true",
                     help="reference-scale grids (128 tracer, 128x2x128 RT)")
-    ap.add_argument("--plot", action="store_true", help="not ported yet (slice H)")
+    ap.add_argument("--plot", action="store_true",
+                    help="write the RT averages figure to build/plots/climate/")
     ap.add_argument("--bc", default="periodic", choices=("periodic", "rigid_lid"),
                     help="RT vertical boundary treatment: periodic-z (one FFT, default) or "
                          "the reference tank's rigid lids (image-charge FFT pressure solve)")

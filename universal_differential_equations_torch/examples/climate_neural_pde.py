@@ -1,7 +1,7 @@
 """Climate 1-D neural PDE on the port: a learned flux in a diffusion-advection column.
 
     python -m universal_differential_equations_torch.examples.climate_neural_pde
-        [--quick] [--device cuda]
+        [--quick] [--plot] [--device cuda]
 
 The port of ``examples/climate/neural_pde.py`` (``Climate/NeuralPDE/npde.jl``)
 with the same constants, in float32: ghost-node D1/D2 operators on a
@@ -18,8 +18,9 @@ flux with ROCK4, RKC1(s=16) and ROCK2, which must land on one trajectory.
 Every stage runs on ``--device`` (default ``cuda``; it raises where there is
 no card — ``--device cpu`` must be asked for).  The initial weights come
 from ``torch.Generator(0)``, seeded as the JAX script's key; it draws other
-numbers than ``jax.random``.  ``--plot`` is not ported yet (the figures wait
-for ``viz.py``, slice H).
+numbers than ``jax.random``.  ``--plot`` writes the JAX script's two figures
+(the learned flux, the ROCK4 rollout) to ``build/plots/climate/``
+(:func:`write_plots`); it needs matplotlib, imported before the truth.
 
 Gates, as in the JAX script: the LM loss < 0.05; the RKC1 and ROCK2 rollouts
 succeed within 5 % (relative L2) of ROCK4's.  The last line of the output is
@@ -30,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import json
+from pathlib import Path
 
 import torch
 
@@ -37,9 +39,10 @@ import universal_differential_equations_torch as ude
 from universal_differential_equations_torch.examples.lv_scenario_1 import stopwatch
 from universal_differential_equations_torch.flatten_util import tree_flatten
 from universal_differential_equations_torch.models import climate_npde as cn
-from universal_differential_equations_torch.utils import card_name
+from universal_differential_equations_torch.utils import card_name, require_viz
 
 F32 = torch.float32
+PLOTS = Path(__file__).resolve().parents[2] / "build" / "plots" / "climate"
 SEED = 0  # the JAX script's PRNGKey(0)
 N_GRID = 32
 T_END = 1.5
@@ -133,6 +136,38 @@ def _dev(a, b):
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
 
 
+def flux_curves(net, params, data):
+    """The flux figure's curves over the visited state range (200 points
+    from ``data``'s min to max, on ``params``' device): the net on constant
+    profiles (its middle output) and Φ(u), each mean-centred, since the flux
+    enters through D1 only and an additive constant is unobservable.
+    Returns numpy ``(u, net flux, true flux)``."""
+    uu = torch.linspace(float(data.min()), float(data.max()), 200, dtype=F32,
+                        device=data.device)
+    phi_true = torch.cos(torch.sin(uu**3) + torch.sin(torch.cos(uu**2))).cpu().numpy()
+    with torch.no_grad():
+        phi_net = net.apply(params, uu[:, None].expand(-1, N_GRID - 2))[:, 15].cpu().numpy()
+    return uu.cpu().numpy(), phi_net - phi_net.mean(), phi_true - phi_true.mean()
+
+
+def write_plots(curves, rollout_ys, outdir=None):
+    """``npde.jl``'s figures: the learned flux against Φ(u) (``curves`` from
+    :func:`flux_curves`) and the t = 10 ROCK4 rollout as a z-t field, into
+    ``outdir`` (``PLOTS``)."""
+    from universal_differential_equations_torch import viz
+
+    outdir = Path(PLOTS if outdir is None else outdir)
+    uu, phi_net, phi_true = curves
+    viz.save(viz.plot_function_comparison(
+        uu, phi_net, phi_true, labels=("NN flux", "Φ(u) truth"), xlabel="u",
+        ylabel="flux (mean-centered)",
+        title="learned nonlinear flux (up to the D1-null constant)"), outdir / "npde_flux.pdf")
+    viz.save(viz.plot_field(rollout_ys.cpu().numpy().T, (0.0, 10.0, 0.0, 1.0),
+                            title="neural-PDE rollout to t=10 (ROCK4)", ylabel="z",
+                            cbar_label="u"), outdir / "npde_rollout.pdf")
+    print(f"plots written to {outdir}")
+
+
 def main(quick=False, device="cuda", plot=False, adam_steps=None, lm_iters=None,
          adjoint_calls=10):
     """The case study; ``adam_steps``/``lm_iters`` override the budgets
@@ -140,7 +175,7 @@ def main(quick=False, device="cuda", plot=False, adam_steps=None, lm_iters=None,
     adjoint gradients.  Raises ``RuntimeError`` after printing the result
     where a gate fails."""
     if plot:
-        raise NotImplementedError("--plot waits for the port of viz.py (slice H)")
+        require_viz()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
@@ -154,7 +189,7 @@ def main(quick=False, device="cuda", plot=False, adam_steps=None, lm_iters=None,
     data = truth(D1, D2, u0, ts)
     lap("truth")
 
-    rhs, params0, _ = cn.make_neural_rhs(torch.Generator().manual_seed(SEED), device=device)
+    rhs, params0, net = cn.make_neural_rhs(torch.Generator().manual_seed(SEED), device=device)
     residuals = make_residuals(rhs, u0, ts, data, D1, D2)
     warm, res = train(residuals, params0, adam_steps, lm_iters)
     loss = float(res.loss)
@@ -204,6 +239,8 @@ def main(quick=False, device="cuda", plot=False, adam_steps=None, lm_iters=None,
     if not all(gates.values()):
         print(json.dumps(out), flush=True)
         raise RuntimeError(f"climate neural-PDE gate failed: {gates}")
+    if plot:
+        write_plots(flux_curves(net, res.params, data), long.ys)
     return out
 
 
@@ -211,7 +248,8 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="100 ADAM steps and ≤ 20 LM iterations (300 and ≤ 60 without)")
-    ap.add_argument("--plot", action="store_true", help="not ported yet (slice H)")
+    ap.add_argument("--plot", action="store_true",
+                    help="write the figures to build/plots/climate/")
     ap.add_argument("--device", default="cuda",
                     help="torch device for every stage (default cuda)")
     args = ap.parse_args()

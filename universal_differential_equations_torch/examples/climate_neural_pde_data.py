@@ -1,7 +1,7 @@
 """Climate 1-D neural PDE on the port, trained on Rayleigh-Taylor averages.
 
     python -m universal_differential_equations_torch.examples.climate_neural_pde_data
-        [--quick] [--reference-bar] [--data auto|generated|reference] [--device cuda]
+        [--quick] [--reference-bar] [--data auto|generated|reference] [--plot] [--device cuda]
 
 The port of ``examples/climate/neural_pde_data.py`` (``Climate/NeuralPDE/
 npde_data.jl``) in its generated-data mode, float32: the committed b̄(z, t)
@@ -27,7 +27,9 @@ Gates, as in the JAX script: the RKC2 rollout within 5 % of ROCK4's; outside
 ``--quick``, the best loss < 0.2 × the initial one and the ROCK4 rollout's
 rel-L2 against the data < 0.6.  Every stage runs on ``--device`` (default
 ``cuda``); the initial weights come from ``torch.Generator(0)``, which draws
-other numbers than ``jax.random``.  ``--plot`` is not ported yet (slice H).
+other numbers than ``jax.random``.  ``--plot`` writes the JAX script's two
+figures (data and ROCK4 rollout as z-t fields) to ``build/plots/climate/``
+(:func:`write_plots`); it needs matplotlib, imported before the data.
 The last line of the output is a JSON object with the walls, losses and
 gates.
 """
@@ -48,9 +50,10 @@ from universal_differential_equations_torch.models.climate_datagen import (
     coarse_grain,
     rayleigh_taylor_3d,
 )
-from universal_differential_equations_torch.utils import card_name
+from universal_differential_equations_torch.utils import card_name, require_viz
 
 F32 = torch.float32
+PLOTS = Path(__file__).resolve().parents[2] / "build" / "plots" / "climate"
 SEED = 0  # the JAX script's PRNGKey(0)
 REFERENCE_JLD2 = "rayleigh_taylor_instability_3d_horizontal_averages.jld2"
 
@@ -153,12 +156,32 @@ def reference_protocol_bar(rhs, u0, tspan, ts, data, eig, params0, out_dir=OUT_D
     return payload
 
 
+def write_plots(z, n_grid, tspan, data, rollout_ys, outdir=None):
+    """``npde_data.jl``'s figure: the data and the ROCK4 rollout as z-t
+    fields over the interior levels of the coarse-grained column, into
+    ``outdir`` (``PLOTS``)."""
+    from universal_differential_equations_torch import viz
+
+    outdir = Path(PLOTS if outdir is None else outdir)
+    # the physical vertical coordinate: the coarse-grained interior levels of
+    # the centred RT domain (as climate_data_generation's rt_averages.pdf)
+    zc = np.asarray(coarse_grain(np.asarray(z)[None, :], len(z) // n_grid))[0]
+    extent = (tspan[0], tspan[1], float(zc[1]), float(zc[-2]))
+    viz.save(viz.plot_field(data.cpu().numpy().T, extent,
+                            title="b̄(z, t) data (interior levels)", ylabel="z",
+                            cbar_label="b̄"), outdir / "npde_data_truth.pdf")
+    viz.save(viz.plot_field(rollout_ys.cpu().numpy().T, extent,
+                            title="neural-PDE ROCK4 rollout", ylabel="z", cbar_label="b̄"),
+             outdir / "npde_data_rollout.pdf")
+    print(f"plots written to {outdir}")
+
+
 def main(quick=False, device="cuda", source="auto", reference_bar=False, plot=False,
          out_dir=OUT_DIR, adam_steps=None):
     """The pipeline; ``adam_steps`` overrides the ADAM budget (300; 30 with
     ``quick``)."""
     if plot:
-        raise NotImplementedError("--plot waits for the port of viz.py (slice H)")
+        require_viz()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
@@ -231,13 +254,16 @@ def main(quick=False, device="cuda", source="auto", reference_bar=False, plot=Fa
     if not all(gates.values()):
         print(json.dumps(out), flush=True)
         raise RuntimeError(f"climate neural-PDE (data) gate failed: {gates}")
+    if plot:
+        write_plots(z, n_grid, tspan, data, sol.ys)
     return out
 
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true")
-    ap.add_argument("--plot", action="store_true", help="not ported yet (slice H)")
+    ap.add_argument("--plot", action="store_true",
+                    help="write the figures to build/plots/climate/")
     ap.add_argument("--data", choices=("auto", "reference", "generated"), default="auto",
                     help="'generated' (and 'auto') trains on the RT averages; 'reference' "
                          "needs the reference's JLD2, which is not in the repository")

@@ -1,7 +1,7 @@
 """Climate neural-ODE propagator on the port, trained on Rayleigh-Taylor horizontal averages.
 
     python -m universal_differential_equations_torch.examples.climate_training_rt
-        [--quick] [--data PATH] [--checkpoint PATH] [--device cuda]
+        [--quick] [--data PATH] [--checkpoint PATH] [--plot] [--device cuda]
 
 The port of ``examples/climate/training_rt.py``
 (``Climate/Training/neural_pde_rayleigh_taylor_instability.jl``): load the
@@ -26,8 +26,11 @@ both packages read.  ``--checkpoint PATH`` evaluates a saved model (for
 example the JAX package's committed ``examples/climate/data/dbdt_nn.npz``)
 without training.  Every stage runs on ``--device`` (default ``cuda``);
 initial weights come from ``torch.Generator(seed)``, which draws other
-numbers than ``jax.random``.  ``--plot`` is not ported yet (slice H).  The
-last line of the output is a JSON object with the walls, per-seed results
+numbers than ``jax.random``.  ``--plot`` writes the JAX script's figures
+(data and rollout fields, profile snapshots, the rollout GIF) to
+``build/plots/climate/`` for the kept or ``--checkpoint`` model
+(:func:`write_plots`); it needs matplotlib and Pillow, imported before the
+data.  The last line of the output is a JSON object with the walls, per-seed results
 and gates.
 """
 from __future__ import annotations
@@ -46,12 +49,13 @@ from universal_differential_equations_torch.models.climate_datagen import (
     coarse_grain,
     rayleigh_taylor_3d,
 )
-from universal_differential_equations_torch.utils import card_name
+from universal_differential_equations_torch.utils import card_name, require_viz
 
 F32 = torch.float32
 ROOT = Path(__file__).resolve().parents[2]
 DATA = ROOT / "examples" / "climate" / "data" / "rt_horizontal_averages.npz"
 OUT_DIR = ROOT / "build" / "climate"
+PLOTS = ROOT / "build" / "plots" / "climate"
 DT_PAIR = 0.1
 SEEDS = (42, 7, 19)
 
@@ -128,12 +132,44 @@ def train_seed(net, loss_fn, seed, epochs, steps_per_epoch, ckpt_path, device):
     return params, ckpt.best
 
 
+def write_plots(t_u, z, b_cs, roll, cr, outdir=None):
+    """The reference's rollout-vs-data animations (``:186-202``) and their
+    static analogues: the data and the free rollout ``roll`` as z-t fields,
+    four profile snapshots, and ``rt_rollout.gif``, into ``outdir``
+    (``PLOTS``)."""
+    from universal_differential_equations_torch import viz
+
+    outdir = Path(PLOTS if outdir is None else outdir)
+    n_roll = len(roll) - 1
+    extent = (0.0, float(t_u[n_roll]), float(z[0]), float(z[-1]))
+    viz.save(viz.plot_field(b_cs[: n_roll + 1].T, extent,
+                            title="b̄(z, t) data (coarse-grained LES)", ylabel="z",
+                            cbar_label="b̄"), outdir / "rt_data.pdf")
+    viz.save(viz.plot_field(roll.T, extent, title="b̄(z, t) neural-ODE free rollout",
+                            ylabel="z", cbar_label="b̄"), outdir / "rt_rollout.pdf")
+    zc = np.asarray(coarse_grain(np.asarray(z)[None, :], len(z) // cr))[0]
+    fig, ax = viz.new_figure(4.2, 3.4)
+    for j, frac in enumerate((0.0, 0.33, 0.66, 1.0)):
+        i = int(frac * n_roll)
+        ax.plot(b_cs[i], zc, color=viz.SERIES[j], linewidth=1.8, alpha=0.35)
+        ax.plot(roll[i], zc, color=viz.SERIES[j], linewidth=1.1, linestyle="--",
+                label=f"t = {t_u[i]:.1f}")
+    ax.set_xlabel("b̄")
+    ax.set_ylabel("z")
+    ax.set_title("profiles: data (solid) vs rollout (dashed)")
+    ax.legend(fontsize=8)
+    viz.save(fig, outdir / "rt_profiles.pdf")
+    viz.animate_profiles(outdir / "rt_rollout.gif", zc, b_cs[: n_roll + 1], pred=roll,
+                         ts=t_u[: n_roll + 1], xlabel="b̄", title="free rollout")
+    print(f"plots written to {outdir}")
+
+
 def main(quick=False, device="cuda", data=DATA, checkpoint=None, plot=False, out_dir=OUT_DIR,
          epochs=None, steps_per_epoch=None):
     """The pipeline; ``epochs`` and ``steps_per_epoch`` override the budgets
     (25 × 100; 3 × 20 with ``quick``)."""
     if plot:
-        raise NotImplementedError("--plot waits for the port of viz.py (slice H)")
+        require_viz()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
@@ -153,9 +189,11 @@ def main(quick=False, device="cuda", data=DATA, checkpoint=None, plot=False, out
         like = net.init(torch.Generator().manual_seed(0), F32, device)
         params = load_pytree(checkpoint, like, device=device)
         one_step = float(loss_fn(params))
-        rel, _ = rollout_rel(prop, params, b_cs, n_roll)
+        rel, roll = rollout_rel(prop, params, b_cs, n_roll)
         print(f"checkpoint {checkpoint}: one-step {one_step:.3e}, rollout rel-L2 {rel:.4f}")
         out.update(checkpoint=str(checkpoint), loss=one_step, rel=rel)
+        if plot:
+            write_plots(t_u, z, b_cs, roll, cr)
         return out
 
     ckpt_path = Path(out_dir) / ("dbdt_nn_quick.npz" if quick else "dbdt_nn.npz")
@@ -177,7 +215,7 @@ def main(quick=False, device="cuda", data=DATA, checkpoint=None, plot=False, out
               f"rollout rel-L2 {rel:.4f}, {wall:.1f} s", flush=True)
         ladder.append(dict(seed=seed, loss=one_step, best_seen=best_seen, rel=rel, wall_s=wall))
         if best is None or rel < best["rel"]:
-            best = dict(params=params, rel=rel, loss=one_step, seed=seed)
+            best = dict(params=params, rel=rel, loss=one_step, seed=seed, roll=roll)
         if rel < 0.20 and one_step < 2e-4:
             break
     # the saved checkpoint is the selected model
@@ -196,6 +234,8 @@ def main(quick=False, device="cuda", data=DATA, checkpoint=None, plot=False, out
         if not all(gates.values()):
             print(json.dumps(out), flush=True)
             raise RuntimeError(f"RT propagator gate failed: {gates}")
+    if plot:
+        write_plots(t_u, z, b_cs, best["roll"], cr)
     return out
 
 
@@ -206,7 +246,8 @@ if __name__ == "__main__":
                     help="the b(z, t) averages to train on (.npz with t, z, b)")
     ap.add_argument("--checkpoint", default=None,
                     help="evaluate this saved model instead of training")
-    ap.add_argument("--plot", action="store_true", help="not ported yet (slice H)")
+    ap.add_argument("--plot", action="store_true",
+                    help="write the figures and the rollout GIF to build/plots/climate/")
     ap.add_argument("--device", default="cuda",
                     help="torch device for every stage (default cuda)")
     args = ap.parse_args()

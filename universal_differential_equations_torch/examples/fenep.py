@@ -1,7 +1,7 @@
 """FENE-P rheology UDE on the port: learning a closure against a stiff DAE truth.
 
     python -m universal_differential_equations_torch.examples.fenep
-        [--quick] [--device cuda] [--init jax|torch]
+        [--quick] [--plot] [--device cuda] [--init jax|torch]
 
 The port of ``examples/non_newtonian/fenep.py`` (``NonNewtonianFluids/FENEP.jl``):
 the exact shear stress from the BDF DAE solver (the reference's Sundials
@@ -22,8 +22,10 @@ script's own initial weights, ``make_surrogate(jax.random.PRNGKey(3))``,
 committed as ``examples/data/fenep_init.npz`` (written by
 ``tools/fenep_init.py``); ``--init torch`` draws them from
 ``torch.Generator(3)``.  The held-out responses are saved to
-``build/fenep/fenep_test_response.npz``; ``--plot`` is not ported yet (slice
-H).  The last line of the output is a JSON object with the walls, the
+``build/fenep/fenep_test_response.npz``; ``--plot`` draws them into the JAX
+script's ``fenep_test_response.pdf`` in ``build/plots/non_newtonian/``
+(:func:`write_plots`; it needs matplotlib, imported before the truth is
+solved).  The last line of the output is a JSON object with the walls, the
 cross-checks, each arm's losses and the gate.
 """
 from __future__ import annotations
@@ -38,11 +40,12 @@ import torch
 import universal_differential_equations_torch as ude
 from universal_differential_equations_torch.examples.lv_scenario_1 import stopwatch
 from universal_differential_equations_torch.models import fenep
-from universal_differential_equations_torch.utils import card_name
+from universal_differential_equations_torch.utils import card_name, require_viz
 
 F32 = torch.float32
 ROOT = Path(__file__).resolve().parents[2]
 OUT_DIR = ROOT / "build" / "fenep"
+PLOTS = ROOT / "build" / "plots" / "non_newtonian"
 INIT = Path(__file__).resolve().parent / "data" / "fenep_init.npz"
 
 TSPAN = (0.0, 6.2831)
@@ -139,12 +142,35 @@ def initial_surrogate(linear, init="jax", device="cuda", dtype=F32):
     return f1, f0, params
 
 
+def write_plots(ts10, sigma_test, neural, linear, outdir=None):
+    """``Plotfigs.jl``'s held-out stress response, γ̇ = 12·cos(1.5t): the exact
+    DAE against the NN surrogate and the linear model, into ``outdir``
+    (``PLOTS``)."""
+    from universal_differential_equations_torch import viz
+
+    outdir = Path(PLOTS if outdir is None else outdir)
+    fig, ax = viz.new_figure()
+    tt = ts10.cpu().numpy()
+    ax.plot(tt, sigma_test.cpu().numpy(), color=viz.SERIES[0], linewidth=2.4, alpha=0.35,
+            label="exact DAE")
+    ax.plot(tt, neural, color=viz.SERIES[0], linewidth=1.3, linestyle="--",
+            label="NN surrogate")
+    ax.plot(tt, linear, color=viz.SERIES[1], linewidth=1.2, linestyle=":",
+            label="linear model")
+    ax.set_xlabel("t")
+    ax.set_ylabel("shear stress τ₁₂")
+    ax.set_title("held-out test: γ̇(t) = 12·cos(1.5t)")
+    ax.legend(fontsize=8)
+    viz.save(fig, outdir / "fenep_test_response.pdf")
+    print(f"plots written to {outdir}")
+
+
 def main(quick=False, plot=False, device="cuda", init="jax", steps=None):
     """The case study; ``steps`` overrides the ADAM budget per arm (2000, 300
     with ``quick``).  Raises ``RuntimeError`` after printing the result where
     the gate fails."""
     if plot:
-        raise NotImplementedError("--plot waits for the port of viz.py (slice H)")
+        require_viz()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
@@ -186,6 +212,8 @@ def main(quick=False, plot=False, device="cuda", init="jax", steps=None):
     if not gate:
         print(json.dumps(out), flush=True)
         raise RuntimeError("the NN surrogate must beat the linear baseline (FENEP.jl comparison)")
+    if plot:
+        write_plots(ts10, sigma_test, preds["neural"], preds["linear"])
     return out
 
 
@@ -193,7 +221,8 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="300 ADAM steps per arm (2000 without)")
-    ap.add_argument("--plot", action="store_true", help="not ported yet (slice H)")
+    ap.add_argument("--plot", action="store_true",
+                    help="write the held-out figure to build/plots/non_newtonian/")
     ap.add_argument("--device", default="cuda",
                     help="torch device for every stage (default cuda)")
     ap.add_argument("--init", default="jax", choices=("jax", "torch"),

@@ -24,7 +24,9 @@ splits them over devices::
         universal_differential_equations_torch.examples.hjb_100d --quick
 
 One process runs them all on its card; ``--no-mesh`` turns the split off.
-``--plot`` waits for the port of ``viz.py`` (slice H).  The last line of the
+``--plot`` writes the JAX script's ``hjb_loss.pdf`` to
+``build/plots/highdim_pde/`` from rank 0 (:func:`write_plots`); it needs
+matplotlib, imported before training.  The last line of the
 output (rank 0's) is a JSON object with the row ``hjb100d_rel_l2`` and,
 beside it, ``train_wall_s`` and the seconds per iteration (the trainer's
 ``StepTimer`` over its last 50 iterations).
@@ -35,6 +37,7 @@ import argparse
 import json
 import math
 import time
+from pathlib import Path
 
 import torch
 
@@ -51,10 +54,11 @@ from universal_differential_equations_torch.parallel import (
     process_count,
     process_rank,
 )
-from universal_differential_equations_torch.utils import card_name
+from universal_differential_equations_torch.utils import card_name, require_viz
 
 D = 100
 LAM = 1.0
+PLOTS = Path(__file__).resolve().parents[2] / "build" / "plots" / "highdim_pde"
 
 
 def hjb_problem(device, dtype=torch.float32):
@@ -82,12 +86,28 @@ def auto_mesh(device, m=100):
     return mesh if mesh.index is not None else None
 
 
+def write_plots(losses, u0, analytical, rel_l2, outdir=None):
+    """``lambaem.jl``'s figure: the terminal-condition loss over training,
+    annotated with u(0, 0) against the analytic MC value, into ``outdir``
+    (``PLOTS``)."""
+    from universal_differential_equations_torch import viz
+
+    outdir = Path(PLOTS if outdir is None else outdir)
+    fig = viz.plot_loss_history(losses, title="deep-BSDE terminal loss (100-D HJB)")
+    fig.axes[0].annotate(f"u(0,0) = {u0:.3f}   analytic MC = {analytical:.3f}   "
+                         f"rel L2 = {rel_l2:.4f}", (0.02, 0.04), xycoords="axes fraction",
+                         fontsize=8)
+    viz.save(fig, outdir / "hjb_loss.pdf")
+    print(f"plots written to {outdir}")
+
+
 def main(quick=False, plot=False, adaptive=False, mesh="auto", device="cuda"):
     """The case study; raises ``AssertionError`` after printing the result
     where rel-L2 is not below 0.2.  ``mesh``: ``"auto"`` (:func:`auto_mesh`),
-    None, or a ``parallel.Mesh`` whose ranks all make the call."""
+    None, or a ``parallel.Mesh`` whose ranks all make the call; with ``plot``
+    rank 0 writes the figure."""
     if plot:
-        raise NotImplementedError("--plot waits for the port of viz.py (slice H)")
+        require_viz()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
@@ -134,6 +154,8 @@ def main(quick=False, plot=False, adaptive=False, mesh="auto", device="cuda"):
     if lead:
         print(json.dumps(out), flush=True)
     assert rel_l2 < 0.2, "HJB accuracy assertion failed"
+    if plot and lead:
+        write_plots(res.losses, u0, analytical, rel_l2)
     return out
 
 
@@ -141,7 +163,8 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="20 time steps and 1400 iterations (50 and 2500 without)")
-    ap.add_argument("--plot", action="store_true", help="not ported yet (slice H)")
+    ap.add_argument("--plot", action="store_true",
+                    help="write the loss figure to build/plots/highdim_pde/ (rank 0)")
     ap.add_argument("--adaptive", action="store_true",
                     help="error-controlled time grid (the LambaEM role): "
                          "AdaptiveEM pilot + pinned-grid refinement")

@@ -1,6 +1,7 @@
 """Hudson Bay lynx/hare UDE on the port: real-data recovery.
 
-    python -m universal_differential_equations_torch.examples.hudson_bay [--quick] --device cuda
+    python -m universal_differential_equations_torch.examples.hudson_bay [--quick] [--plot] \\
+        --device cuda
 
 The port of ``examples/lotka_volterra/hudson_bay.py`` (``hudson_bay.jl`` end
 to end), stage by stage with the same constants: 21 yearly pelt counts
@@ -19,7 +20,9 @@ no card — ``--device cpu`` must be asked for).  The JAX script moves its
 float64 stages to the host CPU because its accelerator has no fast float64;
 the H100 has, so here they stay on the card.  The initial parameters come
 from ``torch.Generator(seed)``, not ``jax.random``: the seeds name the same
-ladder, not the same draws.  Left out: the plots.
+ladder, not the same draws.  ``--plot`` writes the JAX script's two figures
+to ``build/plots/lotka_volterra/`` (:func:`write_plots`); it needs
+matplotlib, imported before the data is read.
 
 The final checks (``hudson_bay.py``'s asserts) hold with and without
 ``--quick``: the recovered model has ≥ 2 terms and a refit trajectory MSE
@@ -42,11 +45,12 @@ import universal_differential_equations_torch as ude
 from universal_differential_equations_torch import sindy as sd
 from universal_differential_equations_torch.flatten_util import ravel_pytree
 from universal_differential_equations_torch.nn import Chain, Dense
-from universal_differential_equations_torch.utils import card_name
+from universal_differential_equations_torch.utils import card_name, require_viz
 
 F32, F64 = torch.float32, torch.float64
 DATA = (Path(__file__).resolve().parents[2] / "examples" / "lotka_volterra" / "data"
         / "hudson_bay_data.dat")
+PLOTS = Path(__file__).resolve().parents[2] / "build" / "plots" / "lotka_volterra"
 SEEDS = (11, 5, 23, 37, 51)
 LAMS = tuple(10.0 ** e for e in np.arange(-7.0, 5.0, 0.1))
 SUB = 8  # fixed Tsit5 substeps per year in the refit judge
@@ -245,7 +249,33 @@ def extrapolate(rec_rhs, p, u0):
     return est.ys, bool(est.success), finite, float(est.ys.abs().max())
 
 
-def main(quick=False, device="cuda"):
+def write_plots(t, Xn, Xh, ys_long, outdir=None):
+    """``hudson_bay.jl``'s figures: the UDE fit (``Xh`` on :func:`recover`'s
+    half-year grid) over the 21 yearly points, and the recovered model's
+    50-year forecast (``ys_long`` from :func:`extrapolate`), into ``outdir``
+    (``PLOTS``)."""
+    from universal_differential_equations_torch import viz
+
+    outdir = Path(PLOTS if outdir is None else outdir)
+    t_end = float(t[-1])
+    tsample = torch.arange(0.0, t_end + 0.25, 0.5, dtype=F32)
+    ts_long = torch.arange(0.0, 50.1, 0.25, dtype=F32)
+    viz.save(viz.plot_timeseries(
+        tsample, Xh, labels=["hare (UDE)", "lynx (UDE)"], data_ts=t, data=Xn,
+        data_label="Hudson Bay data", title="UDE fit to the Hudson Bay pelt record",
+        xlabel="years since 1900", ylabel="population (normalized)"),
+        outdir / "hudson_bay_fit.pdf")
+    viz.save(viz.plot_timeseries(
+        ts_long, ys_long, labels=["hare (recovered)", "lynx (recovered)"], data_ts=t,
+        data=Xn, data_label="data", title="recovered model extrapolated 50 years",
+        xlabel="years since 1900", ylabel="population (normalized)", train_end=t_end),
+        outdir / "hudson_bay_extrapolation.pdf")
+    print(f"plots written to {outdir}")
+
+
+def main(quick=False, device="cuda", plot=False):
+    if plot:
+        require_viz()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
@@ -319,7 +349,7 @@ def main(quick=False, device="cuda"):
     rfit = postfit(rec_rhs, p_rec0, t, Xn)
     print(f"post-fit: loss {float(rfit.loss):.4f} lin={rfit.params['lin'].cpu().numpy()}")
     lap("postfit")
-    _, done, finite, amp = extrapolate(rec_rhs, rfit.params, Xn[0])
+    ys_long, done, finite, amp = extrapolate(rec_rhs, rfit.params, Xn[0])
     print(f"extrapolation to t=50: solver_done={done}, finite={finite}, max amplitude "
           f"{amp:.2f} (normalized units)")
     lap("extrapolation")
@@ -332,6 +362,8 @@ def main(quick=False, device="cuda"):
     if not all(gates.values()):
         print(json.dumps(out), flush=True)
         raise RuntimeError(f"Hudson Bay gate failed: {gates}")
+    if plot:
+        write_plots(t, Xn, a["Xh"], ys_long)
     return out
 
 
@@ -339,7 +371,9 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="200 shooting-BFGS and 60 LM iterations (500 and 200 without)")
+    ap.add_argument("--plot", action="store_true",
+                    help="write the figures to build/plots/lotka_volterra/")
     ap.add_argument("--device", default="cuda",
                     help="torch device for every stage (default cuda)")
     args = ap.parse_args()
-    print(json.dumps(main(quick=args.quick, device=args.device)), flush=True)
+    print(json.dumps(main(quick=args.quick, device=args.device, plot=args.plot)), flush=True)

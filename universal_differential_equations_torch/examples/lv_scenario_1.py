@@ -1,6 +1,7 @@
 """LV scenario 1 on the port: automated identification of nonlinear interactions.
 
-    python -m universal_differential_equations_torch.examples.lv_scenario_1 [--quick] --device cuda
+    python -m universal_differential_equations_torch.examples.lv_scenario_1 [--quick] [--x64] \\
+        [--plot] --device cuda
 
 The port of ``examples/lotka_volterra/scenario_1.py`` (``scenario_1.jl`` end
 to end), stage by stage with the same constants: truth at Vern7/1e-12 →
@@ -15,7 +16,13 @@ no card — ``--device cpu`` must be asked for).  The JAX script moves its
 float64 BFGS and SINDy sweeps to the host CPU because its accelerator has no
 fast float64; the H100 has, so here they stay on the card.  The
 stability-selection readout draws its row subsamples from
-``torch.Generator(17)``, not ``jax.random``.  Left out: the plots.
+``torch.Generator(17)``, not ``jax.random``.
+
+``--x64`` runs the whole script in float64 as the JAX script's ``--x64``
+does: the net and ADAM in float64, then BFGS on ADAM's loss (rtol = atol =
+1e-6) with gtol 1e-10 (:func:`training_losses`).  ``--plot`` writes the JAX
+script's four figures to ``build/plots/lotka_volterra/``
+(:func:`write_plots`); it needs matplotlib, imported before the data is made.
 
 Without ``--quick`` the run must reach ``coef_err < 0.02`` and
 ``period_err < 0.1`` (``scenario_1.py:385``).  The last line of the output is
@@ -28,6 +35,7 @@ import dataclasses
 import itertools
 import json
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -36,12 +44,13 @@ import universal_differential_equations_torch as ude
 from universal_differential_equations_torch import sindy as sd
 from universal_differential_equations_torch.core.integrate import integrate_fixed
 from universal_differential_equations_torch.models import lotka_volterra as lv
-from universal_differential_equations_torch.utils import card_name
+from universal_differential_equations_torch.utils import card_name, require_viz
 
 F32, F64 = torch.float32, torch.float64
 SEED = 1234  # the reference's PRNGKey(1234)
 SUB = 4  # fixed Tsit5 substeps per save interval in the refit judge
 LAMS = tuple(10.0 ** e for e in np.arange(-3.0, 5.0, 0.05))  # exp10.(-3:5)
+PLOTS = Path(__file__).resolve().parents[2] / "build" / "plots" / "lotka_volterra"
 
 
 def stopwatch(device):
@@ -76,6 +85,21 @@ def make_loss(rhs, X, ts, tol):
         return torch.mean((sol.ys - X) ** 2)
 
     return loss
+
+
+def training_losses(rhs, ts64, X64, x64, quick=False):
+    """The two training stages' losses and BFGS options, from the float64
+    data: ADAM's loss at rtol = atol = 1e-6 in float32 (float64 with
+    ``x64``); BFGS in float64, on the loss at 1e-8 with gtol 1e-12 (1e-10
+    with ``quick``), or with ``x64`` on ADAM's loss with gtol 1e-10, as the
+    JAX script's ``--x64`` run.  Returns ``(adam_loss, bfgs_loss,
+    bfgs_kw)``."""
+    dtype = F64 if x64 else F32
+    adam_loss = make_loss(rhs, X64.to(dtype), ts64.to(dtype), 1e-6)
+    if x64:
+        return adam_loss, adam_loss, dict(gtol=1e-10)
+    return (adam_loss, make_loss(rhs, X64, ts64, 1e-8),
+            dict(gtol=1e-10 if quick else 1e-12))
 
 
 def candidate_rhs(basis):
@@ -135,6 +159,13 @@ def extrapolate(rec_rhs, p, u0):
     (``scenario_1.jl:200-207``): ``(ys_rec, period_rec, period_truth)``.
     Raises unless both solves finished: a clamped tail would pass the
     finite/period checks untested."""
+    ts_ex, ys_rec, ys_truth = extrapolation_solves(rec_rhs, p, u0)
+    return ys_rec, mean_period(ts_ex, ys_rec), mean_period(ts_ex, ys_truth)
+
+
+def extrapolation_solves(rec_rhs, p, u0):
+    """:func:`extrapolate`'s two solves on 501 points of [0, 50]: ``(ts_ex,
+    ys_rec, ys_truth)``."""
     ts_ex = torch.linspace(0.0, 50.0, 501, dtype=F64, device=u0.device)
     sol_ex = ude.solve(ude.ODEProblem(rec_rhs, u0, (0.0, 50.0), p), ude.Tsit5(),
                        saveat=ts_ex, rtol=1e-8, atol=1e-8, adjoint=ude.NoAdjoint())
@@ -145,10 +176,42 @@ def extrapolate(rec_rhs, p, u0):
         saveat=ts_ex, rtol=1e-10, atol=1e-10, adjoint=ude.NoAdjoint(), max_steps=16384)
     if not bool(sol_truth.success):
         raise RuntimeError("t=50 truth solve did not converge")
-    return sol_ex.ys, mean_period(ts_ex, sol_ex.ys), mean_period(ts_ex, sol_truth.ys)
+    return ts_ex, sol_ex.ys, sol_truth.ys
 
 
-def main(quick=False, device="cuda"):
+def write_plots(ts, X_hat, X_noisy, nn_out, adam_losses, ts_ex, truth_ex, rec_ex, t1f,
+                outdir=None):
+    """``scenario_1.jl``'s figures (trajectory fit, missing terms, ADAM's
+    losses, the t = 50 forecast) into ``outdir`` (``PLOTS``)."""
+    from universal_differential_equations_torch import viz
+
+    outdir = Path(PLOTS if outdir is None else outdir)
+    P, xy = lv.P_TRUE.to(X_hat), X_hat[:, 0] * X_hat[:, 1]
+    true_terms = torch.stack([-P[1] * xy, P[2] * xy], -1)
+    viz.save(viz.plot_timeseries(
+        ts, X_hat, labels=["x (UDE)", "y (UDE)"], data=X_noisy, data_label="noisy data",
+        title="UDE approximation of the Lotka-Volterra data", ylabel="population"),
+        outdir / "scenario_1_fit.pdf")
+    viz.save(viz.plot_function_comparison(
+        ts, nn_out, true_terms, labels=("NN", "true"), xlabel="t",
+        title="learned missing interaction terms"), outdir / "scenario_1_missing_term.pdf")
+    viz.save(viz.plot_loss_history(adam_losses, title="ADAM stage loss"),
+             outdir / "scenario_1_loss.pdf")
+    fig = viz.plot_timeseries(ts_ex, truth_ex, labels=["x (truth)", "y (truth)"],
+                              title="recovered model extrapolated to t = 50",
+                              ylabel="population", train_end=t1f)
+    ax = fig.axes[0]
+    ts_ex, rec_ex = ts_ex.cpu().numpy(), rec_ex.cpu().numpy()
+    for i in range(2):
+        ax.plot(ts_ex, rec_ex[:, i], linestyle="--", linewidth=1.2, color=viz.SERIES[i],
+                alpha=0.9)
+    viz.save(fig, outdir / "scenario_1_extrapolation.pdf")
+    print(f"plots written to {outdir}")
+
+
+def main(quick=False, device="cuda", plot=False, x64=False):
+    if plot:
+        require_viz()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
@@ -157,25 +220,26 @@ def main(quick=False, device="cuda"):
 
     # -- data generation (scenario_1.jl:40-53): float64 at the reference's 1e-12
     ts64, X_true, X_noisy64 = lv.generate_data(gen, device=device)
-    ts, X_noisy = ts64.float(), X_noisy64.float()
     t1f = float(ts64[-1])
-    print(f"data: {X_noisy.shape[0]} samples on t∈[0, {t1f}]")
+    print(f"data: {X_noisy64.shape[0]} samples on t∈[0, {t1f}]"
+          + (" (float64 throughout)" if x64 else ""))
     lap("data")
 
     # -- UDE definition (scenario_1.jl:59-73)
-    rhs, params0, net = lv.make_ude(gen, device=device)
+    rhs, params0, net = lv.make_ude(gen, dtype=F64 if x64 else F32, device=device)
 
     # -- two-stage training (scenario_1.jl:111-118): ADAM in float32, then
-    # BFGS in float64 at rtol = atol = 1e-8 (the reference's dtype)
-    res1 = ude.fit(make_loss(rhs, X_noisy, ts, 1e-6), params0,
+    # BFGS in float64 at rtol = atol = 1e-8 (the reference's dtype); with
+    # x64 both in float64 on ADAM's loss
+    adam_loss, bfgs_loss, bfgs_kw = training_losses(rhs, ts64, X_noisy64, x64, quick)
+    res1 = ude.fit(adam_loss, params0,
                    lambda ps: torch.optim.Adam(ps, lr=0.1), 100 if quick else 200,
                    callback=lambda s, l, p: print(f"  adam step {s}: loss {l:.6f}"),
                    callback_every=50)
     lap("adam")
     p64 = [{k: v.double() for k, v in layer.items()} for layer in res1.params]
-    res2 = ude.bfgs_minimize(make_loss(rhs, X_noisy64, ts64, 1e-8), p64,
-                             maxiters=300 if quick else 2000, initial_stepnorm=0.01,
-                             gtol=1e-10 if quick else 1e-12)
+    res2 = ude.bfgs_minimize(bfgs_loss, p64, maxiters=300 if quick else 2000,
+                             initial_stepnorm=0.01, **bfgs_kw)
     print(f"training: adam final {res1.final_loss:.6f} → bfgs {float(res2.value):.8f} "
           f"in {int(res2.iterations)} iterations, {int(res2.num_evals)} evaluations")
     lap("bfgs")
@@ -305,7 +369,8 @@ def main(quick=False, device="cuda"):
     # quantities: coefficients at the noise limit and the oscillation period
     # (the far-lobe amplitude is not identifiable from this window; see the
     # JAX script)
-    ys_ex, per_rec, per_tru = extrapolate(rec_rhs, res3.params, u0)
+    ts_ex, ys_ex, truth_ex = extrapolation_solves(rec_rhs, res3.params, u0)
+    per_rec, per_tru = mean_period(ts_ex, ys_ex), mean_period(ts_ex, truth_ex)
     coef_err = float(np.max(np.abs(
         res3.params[:2].cpu().numpy() / np.array([-float(lv.P_TRUE[1]),
                                                   float(lv.P_TRUE[2])]) - 1.0)))
@@ -318,8 +383,11 @@ def main(quick=False, device="cuda"):
     if not quick and not (finite and coef_err < 0.02 and period_err < 0.1):
         raise RuntimeError(f"scenario 1 gate failed: finite={finite}, coef_err={coef_err}, "
                            f"period_err={period_err}")
+    if plot:
+        write_plots(ts64, X_hat, X_noisy64, nn_out, res1.losses, ts_ex, truth_ex, ys_ex, t1f)
     return dict(
-        device=card_name(device), quick=quick, walls=walls, total_s=sum(walls.values()),
+        device=card_name(device), quick=quick, x64=x64, walls=walls,
+        total_s=sum(walls.values()),
         adam_loss=res1.final_loss, bfgs_loss=float(res2.value),
         bfgs_iterations=int(res2.iterations), bfgs_evals=int(res2.num_evals),
         pairs=len(pairs), judged=len(short), equations=res_sindy.equations(),
@@ -331,7 +399,12 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="100 ADAM steps and 300 BFGS iterations; no accuracy gate")
+    ap.add_argument("--x64", action="store_true",
+                    help="the whole script in float64 (ADAM included; BFGS on ADAM's loss)")
+    ap.add_argument("--plot", action="store_true",
+                    help="write the figures to build/plots/lotka_volterra/")
     ap.add_argument("--device", default="cuda",
                     help="torch device for every stage (default cuda)")
     args = ap.parse_args()
-    print(json.dumps(main(quick=args.quick, device=args.device)), flush=True)
+    print(json.dumps(main(quick=args.quick, device=args.device, plot=args.plot, x64=args.x64)),
+          flush=True)

@@ -1,6 +1,7 @@
 """LV scenario 2 on the port: partial observability with jointly learned physics.
 
-    python -m universal_differential_equations_torch.examples.lv_scenario_2 [--quick] --device cuda
+    python -m universal_differential_equations_torch.examples.lv_scenario_2 [--quick] [--plot] \\
+        --device cuda
 
 The port of ``examples/lotka_volterra/scenario_2.py`` (``scenario_2.jl``),
 stage by stage with the same constants: x is measured on the 0.1-grid over
@@ -17,7 +18,9 @@ the missing interactions with the reference's model-selection objective
 Every stage runs in float32 on ``--device`` (default ``cuda``; it raises
 where there is no card — ``--device cpu`` must be asked for), as the JAX
 script runs on its accelerator.  The data and initial parameters come from
-``torch.Generator(2222)``, not ``jax.random``.  Left out: the plots.
+``torch.Generator(2222)``, not ``jax.random``.  ``--plot`` writes the JAX
+script's ``scenario_2_fit.pdf`` to ``build/plots/lotka_volterra/``
+(:func:`write_plots`); it needs matplotlib, imported before the data is made.
 
 Without ``--quick`` the run must learn δ within 0.3 of 1.8 and recover
 ``u1*u2`` in both equations (``scenario_2.py``'s asserts).  The last line of
@@ -28,6 +31,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -37,12 +41,13 @@ from universal_differential_equations_torch import sindy as sd
 from universal_differential_equations_torch.examples.lv_scenario_1 import stopwatch
 from universal_differential_equations_torch.flatten_util import ravel_pytree
 from universal_differential_equations_torch.models import lotka_volterra as lv
-from universal_differential_equations_torch.utils import card_name
+from universal_differential_equations_torch.utils import card_name, require_viz
 
 F32 = torch.float32
 SEED = 2222  # the reference's PRNGKey(2222)
 N_SEG = 5
 LAMS = tuple(10.0 ** e for e in np.arange(-3.0, 5.0, 0.1))
+PLOTS = Path(__file__).resolve().parents[2] / "build" / "plots" / "lotka_volterra"
 
 
 def make_data(noise, dtype=F32, device=None):
@@ -112,13 +117,19 @@ def selection_g(k, rss, N):
                        2.0 * k + N * torch.log(rss / N))
 
 
-def recover(rhs, net, p, u0):
-    """Full-trajectory reconstruction on a 0.05-grid and SINDy on the net's
-    outputs with ``selection_g``: ``(result, basis)``."""
+def reconstruct(rhs, p, u0):
+    """The full trajectory from ``u0`` on a 0.05-grid over (0, 6):
+    ``(half_ts, Xh)``."""
     half_ts = torch.arange(0.0, 6.01, 0.05, dtype=u0.dtype, device=u0.device)
     sol = ude.solve(ude.ODEProblem(rhs, u0, (0.0, 6.0), p), ude.Tsit5(), saveat=half_ts,
                     rtol=1e-6, atol=1e-6, adjoint=ude.NoAdjoint())
-    Xh = sol.ys
+    return half_ts, sol.ys
+
+
+def recover(rhs, net, p, u0):
+    """Full-trajectory reconstruction (:func:`reconstruct`) and SINDy on the
+    net's outputs with ``selection_g``: ``(result, basis)``."""
+    _, Xh = reconstruct(rhs, p, u0)
     Yh = net.apply(p["nn"], Xh)
     basis = sd.polynomial_basis(2, 5) + sd.sin_basis(2)
     res = sd.sindy(sd.DirectDataDrivenProblem(Xh, Yh), basis, sd.STLSQ(LAMS),
@@ -127,7 +138,33 @@ def recover(rhs, net, p, u0):
     return res, basis
 
 
-def main(quick=False, device="cuda"):
+def write_plots(half_ts, Xh, ts, Xn, delta, outdir=None):
+    """``scenario_2.jl``'s figure: the reconstruction against the dense
+    x-measurements and the six y-measurements, into ``outdir``
+    (``PLOTS``)."""
+    from universal_differential_equations_torch import viz
+
+    outdir = Path(PLOTS if outdir is None else outdir)
+    ts, Xn = ts.cpu().numpy(), Xn.cpu().numpy()
+    fig = viz.plot_timeseries(
+        half_ts, Xh, labels=["x (UDE)", "y (UDE)"],
+        title=f"partial observability: y seen {N_SEG + 1}× (learned δ = {float(delta):.3f}, "
+              f"true {float(lv.P_TRUE[3]):.1f})", ylabel="population")
+    ax = fig.axes[0]
+    ax.scatter(ts, Xn[:, 0], s=9, color=viz.SERIES[0], alpha=0.5, edgecolors="none",
+               label="x data (dense)")
+    seg_len = (len(ts) - 1) // N_SEG
+    y_idx = np.append(np.arange(N_SEG) * seg_len, N_SEG * seg_len)
+    ax.scatter(ts[y_idx], Xn[y_idx, 1], s=40, marker="D", color=viz.SERIES[1], zorder=4,
+               label="y data (6 points)")
+    ax.legend(fontsize=8, ncol=2)
+    viz.save(fig, outdir / "scenario_2_fit.pdf")
+    print(f"plots written to {outdir}")
+
+
+def main(quick=False, device="cuda", plot=False):
+    if plot:
+        require_viz()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
@@ -180,6 +217,8 @@ def main(quick=False, device="cuda"):
     if not quick and not all(gates.values()):
         print(json.dumps(out), flush=True)
         raise RuntimeError(f"scenario 2 gate failed: {gates}, terms {got}")
+    if plot:
+        write_plots(*reconstruct(rhs, r2.params, Xn[0]), ts, Xn, delta)
     return out
 
 
@@ -187,7 +226,9 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="100 ADAM steps and 50 LM iterations; no accuracy gate")
+    ap.add_argument("--plot", action="store_true",
+                    help="write the figure to build/plots/lotka_volterra/")
     ap.add_argument("--device", default="cuda",
                     help="torch device for every stage (default cuda)")
     args = ap.parse_args()
-    print(json.dumps(main(quick=args.quick, device=args.device)), flush=True)
+    print(json.dumps(main(quick=args.quick, device=args.device, plot=args.plot)), flush=True)

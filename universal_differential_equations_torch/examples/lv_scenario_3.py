@@ -1,6 +1,7 @@
 """LV scenario 3 on the port: a universal PDE with reaction recovery.
 
-    python -m universal_differential_equations_torch.examples.lv_scenario_3 [--quick] --device cuda
+    python -m universal_differential_equations_torch.examples.lv_scenario_3 [--quick] [--plot] \\
+        --device cuda
 
 The port of ``examples/lotka_volterra/scenario_3.py`` (``scenario_3.jl`` end
 to end), stage by stage with the same constants: the Fisher-KPP truth on the
@@ -17,7 +18,9 @@ only ``models/fisher_kpp.make_model`` dispatches to.  Every stage runs on
 ``--device`` (default ``cuda``; it raises where there is no card —
 ``--device cpu`` must be asked for).  The initial weights come from
 ``torch.Generator(3)``, seeded as the JAX script's key; it draws other
-numbers than ``jax.random``.  Left out: the plots.
+numbers than ``jax.random``.  ``--plot`` writes the JAX script's three
+figures to ``build/plots/lotka_volterra/`` (:func:`write_plots`); it needs
+matplotlib, imported before the data is made.
 
 The gates are the JAX script's, with and without ``--quick``: training loss
 < 0.05, and the recovered reaction within 0.08 of u(1−u) on [0, 1].  The last
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import json
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -37,11 +41,12 @@ from universal_differential_equations_torch.examples.lv_scenario_1 import stopwa
 from universal_differential_equations_torch.flatten_util import ravel_pytree
 from universal_differential_equations_torch.models import fisher_kpp as fk
 from universal_differential_equations_torch.nn import MLP
-from universal_differential_equations_torch.utils import card_name
+from universal_differential_equations_torch.utils import card_name, require_viz
 
 F32 = torch.float32
 SEED = 3  # the JAX script's PRNGKey(3)
 LAMS = tuple(10.0 ** e for e in np.arange(-4.0, 2.0, 0.05))
+PLOTS = Path(__file__).resolve().parents[2] / "build" / "plots" / "lotka_volterra"
 
 
 def make_model(generator, dtype=F32, device=None):
@@ -136,7 +141,49 @@ def functional_error(rec, dtype=F32, device=None):
     return float((rec(ug)[:, 0] - ug[:, 0] * (1 - ug[:, 0])).abs().max())
 
 
-def main(quick=False, device="cuda"):
+def reaction_curves(rx, params, rec):
+    """The reaction figure's curves on 101 points of [0, 1], on ``params``'
+    device: numpy ``(u, NN reaction, SINDy-recovered reaction)``."""
+    w = params["w"]
+    ug = torch.linspace(0.0, 1.0, 101, dtype=w.dtype, device=w.device)[:, None]
+    with torch.no_grad():
+        nn = rx.apply(params["rx"], ug)[:, 0]
+        r_rec = rec(ug)[:, 0]
+    return ug[:, 0].cpu().numpy(), nn.cpu().numpy(), r_rec.cpu().numpy()
+
+
+def write_plots(data, ys, curves, outdir=None):
+    """``scenario_3.jl``'s figures: the truth and learned fields, and the NN
+    and recovered reactions against u(1−u) (``curves`` from
+    :func:`reaction_curves`), into ``outdir`` (``PLOTS``)."""
+    from universal_differential_equations_torch import viz
+
+    outdir = Path(PLOTS if outdir is None else outdir)
+    extent = (0.0, fk.T_END, 0.0, fk.NX * fk.DX)
+    viz.save(viz.plot_field(data.cpu().numpy().T, extent, title="ρ(x, t) truth",
+                            cbar_label="ρ"), outdir / "scenario_3_truth.pdf")
+    viz.save(viz.plot_field(ys.cpu().numpy().T, extent,
+                            title="ρ(x, t) learned universal PDE", cbar_label="ρ"),
+             outdir / "scenario_3_learned.pdf")
+    ugg, nn_react, r_rec = curves
+    fig, ax = viz.new_figure()
+    ax.plot(ugg, ugg * (1 - ugg), color=viz.SERIES[0], linewidth=2.4, alpha=0.35,
+            label="r·u(1−u) truth")
+    ax.plot(ugg, nn_react, color=viz.SERIES[0], linewidth=1.3, linestyle="--",
+            label="NN reaction")
+    ax.plot(ugg, r_rec, color=viz.SERIES[1], linewidth=1.3, linestyle=":",
+            label="SINDy recovered")
+    ax.set_xlabel("ρ")
+    ax.set_ylabel("reaction")
+    ax.set_title("reaction recovery (scenario 3)")
+    ax.legend(fontsize=8)
+    viz.save(fig, outdir / "scenario_3_reaction.pdf")
+    print(f"plots written to {outdir}")
+
+
+def main(quick=False, device="cuda", plot=False):
+    if plot:
+        require_viz()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
@@ -148,7 +195,8 @@ def main(quick=False, device="cuda"):
     p_tr, loss, rounds = train(make_residuals(rhs, ts, data), params0, quick)
     print(f"training done: loss {loss:.5f}")
     lap("train")
-    rec = recover(*reaction_pairs(rhs, rx, p_tr, ts, data))
+    u_flat, r_flat = reaction_pairs(rhs, rx, p_tr, ts, data)
+    rec = recover(u_flat, r_flat)
     ferr = functional_error(rec, device=device)
     print("recovered reaction:", rec.equations("dr")[0])
     print(f"sparsity {int(rec.sparsity[0])}, max |recovered - u(1-u)| on [0,1] = {ferr:.4f} "
@@ -161,6 +209,8 @@ def main(quick=False, device="cuda"):
     if not all(gates.values()):
         print(json.dumps(out), flush=True)
         raise RuntimeError(f"scenario 3 gate failed: {gates}")
+    if plot:
+        write_plots(data, u_flat.reshape(data.shape), reaction_curves(rx, p_tr, rec))
     return out
 
 
@@ -169,7 +219,9 @@ if __name__ == "__main__":
     ap.add_argument("--quick", action="store_true",
                     help="2 rounds of 150 ADAM steps and ≤ 30 LM iterations (4 of 500 and "
                          "≤ 100 without)")
+    ap.add_argument("--plot", action="store_true",
+                    help="write the figures to build/plots/lotka_volterra/")
     ap.add_argument("--device", default="cuda",
                     help="torch device for every stage (default cuda)")
     args = ap.parse_args()
-    print(json.dumps(main(quick=args.quick, device=args.device)), flush=True)
+    print(json.dumps(main(quick=args.quick, device=args.device, plot=args.plot)), flush=True)

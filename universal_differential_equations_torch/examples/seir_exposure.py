@@ -1,6 +1,7 @@
 """SEIR exposure on the port: neural ODE vs UDE vs SINDy-recovered exposure.
 
-    python -m universal_differential_equations_torch.examples.seir_exposure [--quick] --device cuda
+    python -m universal_differential_equations_torch.examples.seir_exposure [--quick] [--plot] \\
+        --device cuda
 
 The port of ``examples/seir_exposure/seir_exposure.py`` (``seir_exposure.jl``
 end to end), stage by stage with the same constants: the 21-day truth at
@@ -20,7 +21,9 @@ the truths run in float64.  The noise and the initial weights come from
 ``torch.Generator``s seeded as the JAX script's keys (10, 1, 2); they draw
 other numbers than ``jax.random``.  ``train_variant(polish=True)``, off by
 default as in the JAX script, finishes the BFGS in float64 on the same
-device.  Left out: the plots.
+device.  ``--plot`` writes the JAX script's two figures to
+``build/plots/seir_exposure/`` (:func:`write_plots`); it needs matplotlib,
+imported before the truth is solved.
 
 The gates are the JAX script's: both truth solves succeed, and without
 ``--quick`` both arms' day-60 solves finish with relative error < 0.15 on
@@ -34,6 +37,7 @@ import dataclasses
 import itertools
 import json
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -44,7 +48,7 @@ from universal_differential_equations_torch.examples.hudson_bay import cast
 from universal_differential_equations_torch.examples.lv_scenario_1 import stopwatch
 from universal_differential_equations_torch.flatten_util import ravel_pytree
 from universal_differential_equations_torch.models import seir
-from universal_differential_equations_torch.utils import card_name, rescale_problem
+from universal_differential_equations_torch.utils import card_name, require_viz, rescale_problem
 
 F32, F64 = torch.float32, torch.float64
 # E, I, R, D, C live ~5 decades below S, N after population normalization;
@@ -54,6 +58,7 @@ LAMS = tuple(10.0 ** e for e in np.arange(-6.0, 1.0, 0.1))
 SUB = 8  # fixed Tsit5 substeps per day in the refit judge
 WIDTHS = (13, 17, 21)  # the weak arm's test-function windows
 SEEDS = dict(noise=10, neural_ode=1, exposure_ude=2)  # the JAX script's keys
+PLOTS = Path(__file__).resolve().parents[2] / "build" / "plots" / "seir_exposure"
 
 
 def scales(like):
@@ -296,11 +301,12 @@ def exposure_ude_arm(ts, data, quick, device):
     return rhs, net, params, info
 
 
-def recovery_arms(rhs_ude, net, p_ude, ts, data, lap):
+def recovery_arms(rhs_ude, net, p_ude, ts, data, lap, figures=None):
     """The SINDy triad on the trained exposure UDE (``seir_exposure.jl:191-228``):
     the ideal recovery, the UDE arm and the weak-form arm, and both arms'
     day-60 extrapolations, on the float32 ``ts``, ``data``.  Returns a dict
-    of the results."""
+    of the results; a ``figures`` dict receives :func:`write_plots`'
+    arguments."""
     basis = scenario_basis()
     rc = reconstruct(rhs_ude, net, p_ude, ts, data)
     print(f"exposure reconstruction (scaled units): max |L̂-L| = "
@@ -332,13 +338,16 @@ def recovery_arms(rhs_ude, net, p_ude, ts, data, lap):
     # extrapolation to day 60 (seir_exposure.jl:248-253); truth60() raises
     # unless the day-60 truth converged
     t60 = truth60(device=data.device)
-    _, ok, err = extrapolate(res_ude, t60)
+    ys60, ok, err = extrapolate(res_ude, t60)
     _, ok_w, err_w = extrapolate(res_weak, t60)
     print(f"recovered-model extrapolation to day 60: success={ok}, rel err on E,I,R = "
           f"{err:.3f}")
     print(f"weak-form-model extrapolation to day 60: success={ok_w}, rel err on E,I,R = "
           f"{err_w:.3f} (training-free vs the trained arm's {err:.3f})")
     lap("extrapolation")
+    if figures is not None:
+        figures.update(ts=ts, L_hat=rc["L_hat"], L_true=rc["L_true"], ts60=t60[0],
+                       X60=t60[1], rec60=ys60)
     return dict(k_sel=int(k_sel), refit_loss=float(refit_loss),
                 k_weak=int(k_w), refit_loss_weak=float(refit_loss_w), extrap_rel_err=err,
                 extrap_rel_err_weak=err_w, extrap_success=ok, extrap_success_weak=ok_w,
@@ -358,7 +367,33 @@ def gates(out, quick):
     return g
 
 
-def main(quick=False, device="cuda"):
+def write_plots(ts, L_hat, L_true, ts60, X60, rec60, outdir=None):
+    """``seir_exposure.jl``'s figures: the learned exposure against the truth
+    along the trajectory, and the recovered model's day-21 → 60 forecast
+    (``rec60``) against the day-60 truth ``(ts60, X60)``, into ``outdir``
+    (``PLOTS``)."""
+    from universal_differential_equations_torch import viz
+
+    outdir = Path(PLOTS if outdir is None else outdir)
+    viz.save(viz.plot_function_comparison(
+        ts, L_hat, L_true, labels=("NN exposure", "true exposure"), xlabel="day",
+        ylabel="exposure rate (scaled)", title="learned exposure term along the trajectory"),
+        outdir / "seir_exposure_term.pdf")
+    fig = viz.plot_timeseries(
+        ts60, X60[:, 1:4], labels=["E (truth)", "I (truth)", "R (truth)"],
+        title="recovered exposure model: 21 training days → day 60", xlabel="day",
+        ylabel="fraction of population", train_end=21.0)
+    ax = fig.axes[0]
+    ts60, rec60 = ts60.cpu().numpy(), rec60.cpu().numpy()
+    for i in range(3):
+        ax.plot(ts60, rec60[:, 1 + i], linestyle="--", linewidth=1.2, color=viz.SERIES[i])
+    viz.save(fig, outdir / "seir_extrapolation.pdf")
+    print(f"plots written to {outdir}")
+
+
+def main(quick=False, device="cuda", plot=False):
+    if plot:
+        require_viz()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
@@ -371,12 +406,15 @@ def main(quick=False, device="cuda"):
     lap("train_neural_ode")
     rhs_ude, net, p_ude, expo = exposure_ude_arm(ts, data, quick, device)
     lap("train_exposure_ude")
-    out = recovery_arms(rhs_ude, net, p_ude, ts, data, lap)
+    figures = {}
+    out = recovery_arms(rhs_ude, net, p_ude, ts, data, lap, figures)
     out = dict(device=card_name(device), quick=quick, walls=walls, total_s=sum(walls.values()),
                neural_ode=node, exposure_ude=expo, **out, gates=gates(out, quick))
     if not all(out["gates"].values()):
         print(json.dumps(out), flush=True)
         raise RuntimeError(f"SEIR gate failed: {out['gates']}")
+    if plot:
+        write_plots(**figures)
     return out
 
 
@@ -385,7 +423,9 @@ if __name__ == "__main__":
     ap.add_argument("--quick", action="store_true",
                     help="200 ADAM steps and one round of ≤ 200 BFGS iterations per variant "
                          "(500 and ≤ 5 rounds of 250 without); no day-60 accuracy gate")
+    ap.add_argument("--plot", action="store_true",
+                    help="write the figures to build/plots/seir_exposure/")
     ap.add_argument("--device", default="cuda",
                     help="torch device for every stage (default cuda)")
     args = ap.parse_args()
-    print(json.dumps(main(quick=args.quick, device=args.device)), flush=True)
+    print(json.dumps(main(quick=args.quick, device=args.device, plot=args.plot)), flush=True)

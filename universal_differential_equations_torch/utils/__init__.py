@@ -4,9 +4,10 @@ Port of ``rescale_problem`` and the tree helpers (``flat_dim``,
 ``zeros_like_tree``, ``tree_where``, ``tree_add``, ``tree_scale``) from
 ``universal_differential_equations_tpu/utils``, its re-exports
 (``ravel_pytree`` and ``profiling``'s ``benchmark``, ``trace`` and
-``StepTimer``), and ``card_name``, the device line that the pipelines and
-the benchmark print.  The rest of that module (device probes, the XLA
-compilation cache) serves the TPU and has no counterpart here.
+``StepTimer``), ``card_name``, the device line that the pipelines and the
+benchmark print, and ``require_viz``, the examples' ``--plot`` import.  The
+rest of that module (device probes, the XLA compilation cache) serves the
+TPU and has no counterpart here.
 """
 from __future__ import annotations
 
@@ -18,8 +19,9 @@ import torch
 from ..flatten_util import ravel_pytree, tree_flatten
 from .profiling import StepTimer, benchmark, trace
 
-__all__ = ["card_name", "flat_dim", "rescale_problem", "tree_add", "tree_scale", "tree_where",
-           "zeros_like_tree", "ravel_pytree", "benchmark", "trace", "StepTimer"]
+__all__ = ["card_name", "require_viz", "flat_dim", "rescale_problem", "tree_add",
+           "tree_scale", "tree_where", "zeros_like_tree", "ravel_pytree", "benchmark", "trace",
+           "StepTimer"]
 
 
 def card_name(device):
@@ -31,6 +33,17 @@ def card_name(device):
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def require_viz():
+    """The port's ``viz`` module, imported at once: an example's ``--plot``
+    calls this before any data or training, so a host without matplotlib
+    stops before the run instead of after it."""
+    try:
+        from .. import viz
+    except ImportError as e:
+        raise ImportError(f"--plot needs matplotlib (and Pillow for the GIF): {e}") from e
+    return viz
 
 
 def flat_dim(tree) -> int:
