@@ -323,3 +323,41 @@ def test_deep_bsde_iteration_matches_cpu(cuda_device):
 
     card, cpu = losses(cuda_device), losses(torch.device("cpu"))
     assert abs(card[0] / cpu[0] - 1.0) <= 1e-5 and abs(card[1] / cpu[1] - 1.0) <= 1e-4
+
+
+def test_program_spans_match_the_profiler_on_the_card(cuda_device):
+    # the training loops' spans, traced with the card's activity: each
+    # record within 50 us of the profiler's own event at both ends, and a
+    # device-tensor count read with the record
+    from torch.profiler import ProfilerActivity, profile
+
+    from universal_differential_equations_torch import deepbsde
+    from universal_differential_equations_torch.examples import hjb_100d
+    from universal_differential_equations_torch.utils import profiling
+
+    prob, alg = hjb_100d.hjb_problem(cuda_device)
+    x0 = torch.tensor([[3.0, -2.0], [0.0, 4.0], [-1.0, 1.0]], device=cuda_device)
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function("session"):
+            res = tude.bfgs_minimize_lanes(lambda x: ((x - 1.0) ** 2 * x.abs()).sum(-1), x0,
+                                           maxiters=4, initial_stepnorm=0.01)
+            deepbsde.solve_terminal_pde(prob, alg, trajectories=16, n_steps=5, maxiters=3,
+                                        pabstol=0.0)
+            torch.cuda.synchronize()
+    rec = profiling.recorded()
+    profiling.clear()
+    trials = [n for name, _, n in rec["counts"] if name == "bfgs.lane_trials"]
+    assert trials == [int((res.num_evals - 1).sum())]
+    events = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.is_user_annotation() and e.device_type() == torch.autograd.DeviceType.CPU:
+            events.setdefault(e.name(), []).append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    names = {s[0] for s in rec["spans"]}
+    assert {"bfgs.read", "bfgs.evaluate", "bsde.iteration", "bsde.backward"} <= names
+    for name in names:
+        mine = sorted((s, e) for n, s, e, _, _ in rec["spans"] if n == name)
+        theirs = sorted(events[name])
+        assert len(mine) == len(theirs), name
+        for (s, e), (ps, pe) in zip(mine, theirs):
+            assert abs(s - ps) <= 50_000 and abs(e - pe) <= 50_000, (name, s - ps, e - pe)

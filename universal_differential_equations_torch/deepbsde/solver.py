@@ -42,7 +42,7 @@ from ..core.problem import SDEProblem
 from ..flatten_util import tree_flatten
 from ..parallel.mesh import replicate, shard_ensemble
 from ..solvers.sde import AdaptiveEM
-from ..utils.profiling import StepTimer
+from ..utils.profiling import StepTimer, span
 
 __all__ = ["TerminalPDEProblem", "NNPDENS", "solve_terminal_pde", "BSDEResult",
            "make_train_step", "mc_analytical_hjb"]
@@ -113,6 +113,9 @@ def make_train_step(problem, alg, x0, params, n_steps, learning_rate=0.03, mesh=
     n_steps, d) normals, every rank of the mesh calls it, and it returns
     the global mean loss; the gradient is the global one (one
     ``all_reduce`` of the flat gradient and the loss).
+
+    While a profiler records, ``step`` marks ``bsde.forward`` (the loss),
+    ``bsde.backward`` and ``bsde.optimizer`` (ADAM's update).
     """
     t0, t1 = problem.tspan
     dtype, device = x0.dtype, x0.device
@@ -147,8 +150,10 @@ def make_train_step(problem, alg, x0, params, n_steps, learning_rate=0.03, mesh=
     def step(normals):
         opt.zero_grad(set_to_none=True)
         m_global = None if mesh is None else normals.shape[0] * mesh.size
-        loss = loss_fn(build(leaves), normals * sqrt_dt, m_global)
-        loss.backward()
+        with span("bsde.forward"):
+            loss = loss_fn(build(leaves), normals * sqrt_dt, m_global)
+        with span("bsde.backward"):
+            loss.backward()
         if mesh is not None:
             # one collective: the flat gradient and this rank's share of the loss
             flat = torch.cat([leaf.grad.reshape(-1) for leaf in leaves] + [loss.detach()[None]])
@@ -156,7 +161,8 @@ def make_train_step(problem, alg, x0, params, n_steps, learning_rate=0.03, mesh=
             for leaf, g in zip(leaves, flat[:-1].split([leaf.numel() for leaf in leaves])):
                 leaf.grad.copy_(g.view_as(leaf))
             loss = flat[-1]
-        opt.step()
+        with span("bsde.optimizer"):
+            opt.step()
         return loss.detach()
 
     return step, lambda: build([leaf.detach() for leaf in leaves])
@@ -253,8 +259,14 @@ def solve_terminal_pde(
         losses = []
         converged = False
         for it in range(maxiters):
-            losses.append(float(step(draw_paths(stage, it, n_steps))))
-            timer.tick()
+            with span("bsde.iteration"):
+                with span("bsde.draw"):
+                    z = draw_paths(stage, it, n_steps)
+                loss = step(z)
+                del z  # freed before the next draw, as a temporary would be
+                with span("bsde.read", waits=True):
+                    losses.append(float(loss))
+                timer.tick()
             if verbose and it % 50 == 0:
                 print(f"  bsde iter {it} (n={n_steps}): loss {losses[-1]:.5f}")
             if losses[-1] < pabstol:

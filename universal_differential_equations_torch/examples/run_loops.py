@@ -88,6 +88,7 @@ from universal_differential_equations_torch.train import (
     levenberg_marquardt_lanes,
 )
 from universal_differential_equations_torch.utils import card_name, require_viz
+from universal_differential_equations_torch.utils.profiling import span
 
 F32 = torch.float32
 NOISE_LEVELS = (1e-3, 5e-3, 1e-2, 2.5e-2, 5e-2)  # run_loops.jl:40-46
@@ -146,7 +147,8 @@ class _Graphed:
     no host-to-device copies); it is run once on a side stream, then
     captured.  A training evaluation of the study is ~70k small operations,
     each a launch from the host when run eagerly; the graph launches them
-    as one."""
+    as one.  While a profiler records, each call is a ``graph.replay`` span
+    (copies in, replay, clones out)."""
 
     def __init__(self, fn, *inputs):
         self.inputs = [x.detach().clone() for x in inputs]
@@ -162,11 +164,12 @@ class _Graphed:
         self.ops, self.replays = count.captured, 0
 
     def __call__(self, *inputs):
-        for buf, x in zip(self.inputs, inputs):
-            buf.copy_(x)
-        self.graph.replay()
-        self.replays += 1
-        return tuple(o.clone() for o in self.outputs)
+        with span("graph.replay"):
+            for buf, x in zip(self.inputs, inputs):
+                buf.copy_(x)
+            self.graph.replay()
+            self.replays += 1
+            return tuple(o.clone() for o in self.outputs)
 
 
 def _sync(device):
@@ -317,18 +320,20 @@ def build_stages(weak_widths=(9, 13, 17, 21, 25, 29), bfgs_rounds=None, lm_round
     def adam_stage(theta0, data, steps=ADAM_STEPS, lr=0.1, b1=0.9, b2=0.999, eps=1e-8):
         """``steps`` ADAM(0.1) steps on every lane, in ``optax.adam``'s
         arithmetic; returns the parameters and each lane's loss history
-        (L, steps)."""
+        (L, steps).  While a profiler records, each step's eager update is
+        an ``adam.update`` span."""
         theta = theta0.detach()
         fg = compiled("loss_and_grad", loss_and_grad, theta, data)
         mu, nu = torch.zeros_like(theta), torch.zeros_like(theta)
         hist = []
         for k in range(1, steps + 1):
             loss, g = fg(theta, data)
-            mu = (1 - b1) * g + b1 * mu
-            nu = (1 - b2) * g * g + b2 * nu
-            mu_hat = mu / torch.tensor(1 - b1**k, dtype=g.dtype)
-            nu_hat = nu / torch.tensor(1 - b2**k, dtype=g.dtype)
-            theta = theta + -lr * (mu_hat / (torch.sqrt(nu_hat) + eps))
+            with span("adam.update"):
+                mu = (1 - b1) * g + b1 * mu
+                nu = (1 - b2) * g * g + b2 * nu
+                mu_hat = mu / torch.tensor(1 - b1**k, dtype=g.dtype)
+                nu_hat = nu / torch.tensor(1 - b2**k, dtype=g.dtype)
+                theta = theta + -lr * (mu_hat / (torch.sqrt(nu_hat) + eps))
             hist.append(loss)
         return theta, torch.stack(hist, dim=1)
 

@@ -24,6 +24,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..flatten_util import ravel_pytree
+from ..utils.profiling import count, span
 
 __all__ = ["bfgs_minimize", "bfgs_minimize_lanes", "BFGSResult"]
 
@@ -135,9 +136,18 @@ def _bfgs_lanes(fun, x0, maxiters, gtol, ftol, initial_stepnorm, allow_f_increas
     ``jax.vmap(bfgs_minimize)`` does for it; the evaluations of the batch
     are the most any lane needs in all, not the sum over iterations of the
     most any lane needs in that iteration.
+
+    While a profiler records, the loop marks its host work (``bfgs.read``,
+    the flag read that waits for the device, then ``bfgs.evaluate``,
+    ``bfgs.search`` and ``bfgs.update``) and counts ``bfgs.lanes`` (L, once),
+    ``bfgs.evaluations`` (one per pass; the first evaluation, before the
+    loop, is not one) and, at the end, ``bfgs.lane_trials``: the passes
+    summed over the lanes that were searching in each, a device tensor read
+    only with the record.
     """
     dtype, device = x0.dtype, x0.device
     L, n = x0.shape
+    count("bfgs.lanes", L)
 
     def fg(x):
         if value_and_grad:
@@ -177,59 +187,68 @@ def _bfgs_lanes(fun, x0, maxiters, gtol, ftol, initial_stepnorm, allow_f_increas
 
     searching = k < maxiters
     ls = direction()
-    while bool(searching.any()):  # the one device-to-host read per evaluation
-        a = torch.where(searching, ls.trial(), torch.zeros_like(f))
-        f_t, g_t = fg(x + a[:, None] * ls.p)
-        ls.update(searching, a, f_t, g_t)
-        nfev_ls = nfev_ls + searching.to(torch.int32)
-        fin = searching & ls.ended()
-        # the BFGS update of the lanes whose line search ended
-        alpha, f_new, g_new, ls_ok = ls.result()
-        p = ls.p
-        x_new = x + alpha[:, None] * p
-        sk = x_new - x
-        yk = g_new - g
-        sy = (sk * yk).sum(-1)
-        # first-step inverse-Hessian scaling (Nocedal 6.20)
-        first = ((k == 0) & (sy > 0))[:, None, None]
-        h_scale = (sy / torch.clamp((yk * yk).sum(-1), min=1e-30))[:, None, None]
-        hinv_s = torch.where(first, h_scale * eye, hinv)
-        curv = sy > 1e-12
-        rho = (1.0 / torch.where(curv, sy, torch.ones_like(sy)))[:, None, None]
-        v = eye - rho * (sk[:, :, None] * yk[:, None, :])
-        hinv_upd = v @ hinv_s @ v.transpose(-1, -2) + rho * (sk[:, :, None] * sk[:, None, :])
-        hinv_new = torch.where(curv[:, None, None], hinv_upd, hinv_s)
+    while True:
+        with span("bfgs.read", waits=True):
+            if not bool(searching.any()):  # the one device-to-host read per evaluation
+                break
+        count("bfgs.evaluations")
+        with span("bfgs.evaluate"):
+            a = torch.where(searching, ls.trial(), torch.zeros_like(f))
+            f_t, g_t = fg(x + a[:, None] * ls.p)
+        with span("bfgs.search"):
+            ls.update(searching, a, f_t, g_t)
+            nfev_ls = nfev_ls + searching.to(torch.int32)
+            fin = searching & ls.ended()
+            # the BFGS update of the lanes whose line search ended
+            alpha, f_new, g_new, ls_ok = ls.result()
+        with span("bfgs.update"):
+            p = ls.p
+            x_new = x + alpha[:, None] * p
+            sk = x_new - x
+            yk = g_new - g
+            sy = (sk * yk).sum(-1)
+            # first-step inverse-Hessian scaling (Nocedal 6.20)
+            first = ((k == 0) & (sy > 0))[:, None, None]
+            h_scale = (sy / torch.clamp((yk * yk).sum(-1), min=1e-30))[:, None, None]
+            hinv_s = torch.where(first, h_scale * eye, hinv)
+            curv = sy > 1e-12
+            rho = (1.0 / torch.where(curv, sy, torch.ones_like(sy)))[:, None, None]
+            v = eye - rho * (sk[:, :, None] * yk[:, None, :])
+            hinv_upd = v @ hinv_s @ v.transpose(-1, -2) + rho * (sk[:, :, None] * sk[:, None, :])
+            hinv_new = torch.where(curv[:, None, None], hinv_upd, hinv_s)
 
-        progressed = ls_ok & (f_new <= f) if not allow_f_increases else ls_ok
-        x_keep = torch.where(progressed[:, None], x_new, x)
-        f_keep = torch.where(progressed, f_new, f)
-        g_keep = torch.where(progressed[:, None], g_new, g)
-        gnorm = g_keep.abs().amax(-1)
-        conv = gnorm < gtol
-        if ftol > 0:
-            # only a *successful* step counts: a failed line search leaves
-            # f_new == f and would report a stalled run as converged
-            conv = conv | (progressed & ((f_new - f).abs() <= ftol * f.abs()))
-        # a failed line search gets one retry from a reset inverse Hessian
-        fails_new = torch.where(progressed, 0, fails + 1).to(torch.int32)
+            progressed = ls_ok & (f_new <= f) if not allow_f_increases else ls_ok
+            x_keep = torch.where(progressed[:, None], x_new, x)
+            f_keep = torch.where(progressed, f_new, f)
+            g_keep = torch.where(progressed[:, None], g_new, g)
+            gnorm = g_keep.abs().amax(-1)
+            conv = gnorm < gtol
+            if ftol > 0:
+                # only a *successful* step counts: a failed line search leaves
+                # f_new == f and would report a stalled run as converged
+                conv = conv | (progressed & ((f_new - f).abs() <= ftol * f.abs()))
+            # a failed line search gets one retry from a reset inverse Hessian
+            fails_new = torch.where(progressed, 0, fails + 1).to(torch.int32)
 
-        f1, f2 = fin[:, None], fin[:, None, None]
-        x = torch.where(f1, x_keep, x)
-        f = torch.where(fin, f_keep, f)
-        g = torch.where(f1, g_keep, g)
-        hinv = torch.where(f2, torch.where(progressed[:, None, None], hinv_new, eye), hinv)
-        history = torch.where(f1 & (slots[None, :] == k[:, None]), f_keep[:, None], history)
-        nfev = torch.where(fin, nfev + nfev_ls, nfev)
-        nfev_ls = torch.where(fin, torch.zeros_like(nfev_ls), nfev_ls)
-        k = torch.where(fin, k + 1, k)
-        done = torch.where(fin, conv | (fails_new >= 2), done)
-        converged = torch.where(fin, conv, converged)
-        fails = torch.where(fin, fails_new, fails)
-        # those lanes start their next iteration's line search
-        nxt = fin & ~done & (k < maxiters)
-        ls.restart(nxt, direction())
-        searching = (searching & ~fin) | nxt
+            f1, f2 = fin[:, None], fin[:, None, None]
+            x = torch.where(f1, x_keep, x)
+            f = torch.where(fin, f_keep, f)
+            g = torch.where(f1, g_keep, g)
+            hinv = torch.where(f2, torch.where(progressed[:, None, None], hinv_new, eye), hinv)
+            history = torch.where(f1 & (slots[None, :] == k[:, None]), f_keep[:, None], history)
+            nfev = torch.where(fin, nfev + nfev_ls, nfev)
+            nfev_ls = torch.where(fin, torch.zeros_like(nfev_ls), nfev_ls)
+            k = torch.where(fin, k + 1, k)
+            done = torch.where(fin, conv | (fails_new >= 2), done)
+            converged = torch.where(fin, conv, converged)
+            fails = torch.where(fin, fails_new, fails)
+            # those lanes start their next iteration's line search
+            nxt = fin & ~done & (k < maxiters)
+            ls.restart(nxt, direction())
+            searching = (searching & ~fin) | nxt
 
+    # every lane has left its search, so nfev_ls is nought
+    count("bfgs.lane_trials", lambda: (nfev - 1).sum())
     return x, f, g, k, nfev, converged, history
 
 

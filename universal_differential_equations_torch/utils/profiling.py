@@ -9,7 +9,11 @@ Port of ``universal_differential_equations_tpu/utils/profiling.py``:
   Chrome trace (``trace.json`` in ``logdir``; Perfetto and
   ``chrome://tracing`` read it);
 * ``StepTimer`` — rolling step-time and throughput metrics for training
-  loops.
+  loops;
+* ``span(name)`` and ``count(name, n)`` — the training loops' own spans and
+  counters, recorded only while a ``torch.profiler`` session records (inside
+  ``trace()``, say): each span lands in the trace as a ``record_function``
+  and, with every count, in an in-memory record that ``recorded()`` returns.
 
 PyTorch compiles nothing ahead of a call, so ``compile_s`` is the first
 call's seconds: lazy CUDA initialisation, any kernel build and the
@@ -19,14 +23,16 @@ tunnel's round trip and has no counterpart here.
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from pathlib import Path
 from typing import Callable
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["benchmark", "trace", "StepTimer"]
+__all__ = ["benchmark", "trace", "StepTimer", "span", "count", "recorded", "clear"]
 
 _TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "trace"
 
@@ -108,3 +114,96 @@ class StepTimer:
     @property
     def steps_per_sec(self):
         return 1.0 / float(np.mean(self._times)) if self._times else float("nan")
+
+
+# The record of the program's spans and counts, kept while a profiler records.
+# Times are ``time.time_ns()``: the Unix-epoch clock of the profiler's events.
+# Spans are numbered from the first ever opened; a span's parent is the
+# number of the span open around it on the same thread.
+_LIMIT = 1 << 17  # entries of each kind kept; past it the older half goes
+_OFF = contextlib.nullcontext()
+_spans = []  # [name, start_ns, end_ns | None, parent number | None, waits]
+_counts = []  # [name, time_ns, n (an int, a float, or a tensor not yet read)]
+_first = 0  # the number of ``_spans[0]``
+_open = threading.local()
+
+
+class _Span:
+    __slots__ = ("entry", "rf")
+
+    def __init__(self, name, waits):
+        self.entry = [name, 0, None, None, waits]
+        self.rf = torch.profiler.record_function(name)
+
+    def __enter__(self):
+        global _first
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        self.entry[3] = stack[-1] if stack else None
+        if len(_spans) >= _LIMIT:
+            drop = _LIMIT // 2
+            del _spans[:drop]
+            _first += drop
+        stack.append(_first + len(_spans))
+        _spans.append(self.entry)
+        self.entry[1] = time.time_ns()
+        self.rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.rf.__exit__(*exc)
+        self.entry[2] = time.time_ns()
+        _open.stack.pop()
+        return False
+
+
+def span(name, *, waits=False):
+    """A span of the host's work named ``name``, recorded only while a
+    ``torch.profiler`` session records; otherwise a shared no-op context,
+    whose cost is one flag test.
+
+    Recording, it is a ``torch.profiler.record_function`` (so it shows in
+    the trace beside the device's work) and an entry of :func:`recorded`.
+    ``waits=True`` marks a span in which the host is blocked on a read from
+    the device.  Open spans only in host loops: never inside a function
+    that is captured as a CUDA graph or transformed by ``torch.func``."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, waits)
+
+
+def count(name, n=1):
+    """Add ``n`` to the counter ``name`` while a ``torch.profiler`` session
+    records (otherwise nothing, at the cost of one flag test).  ``n`` may be
+    a 0-dim device tensor, read only when the record is read, or a function
+    of no arguments that returns one, called only while recording (so that
+    the count's own device work is not done when nobody profiles)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    if callable(n):
+        n = n()
+    if len(_counts) >= _LIMIT:
+        del _counts[: _LIMIT // 2]
+    _counts.append([name, time.time_ns(), n.detach() if isinstance(n, torch.Tensor) else n])
+
+
+def recorded():
+    """``{"spans": [(name, start_ns, end_ns, parent, waits)], "counts":
+    [(name, time_ns, n)]}``, oldest first.  ``parent`` indexes this list of
+    spans (``None`` at the top, or where the parent was dropped); a span
+    still open has ``end_ns`` ``None``.  Tensor counts are read here."""
+    spans = [(name, s, e, None if p is None or p < _first else p - _first, w)
+             for name, s, e, p, w in _spans]
+    for c in _counts:
+        if isinstance(c[2], torch.Tensor):
+            c[2] = c[2].item()
+    return {"spans": spans, "counts": [tuple(c) for c in _counts]}
+
+
+def clear():
+    """Forget every span and count recorded so far."""
+    global _first
+    _first += len(_spans)
+    _spans.clear()
+    _counts.clear()
