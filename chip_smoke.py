@@ -127,8 +127,10 @@ Phases, in order; any failure raises and the script exits non-zero:
     the JAX draw (``examples/data/lv_study_lanes.npz``), float32:
     (a) 10 ADAM steps, one BFGS round of 10 iterations and one LM round of
         3 iterations, on the card (their evaluations replayed as CUDA graphs,
-        captured by a first call) and on the CPU: every lane's loss is finite
-        and does not rise from stage to stage, and the card's losses after
+        captured by a first call; ADAM's and BFGS's hold the lane kernel of
+        ``ops/lv_lanes.py``) and on the CPU: every lane's loss (each
+        stage's parameters scored by ``mean_loss``) is finite and does not
+        rise from stage to stage, and the card's losses after
         ADAM equal the CPU's to 1e-4 relative; seconds per ADAM step, BFGS
         and LM iteration at 25 lanes, and per ADAM step and LM iteration at
         500 lanes;
@@ -143,7 +145,16 @@ Phases, in order; any failure raises and the script exits non-zero:
     (c) ``oracle_stage`` and ``weak_stage``: the card selects the CPU's
         supports, and at least 23 of 25 lanes per arm select the active sets
         the JAX study archived (``loop_study.npz``);
-    (d) neither fused kernel launched.
+    (d) neither fused kernel launched, and the lane kernel did;
+    (e) the lane kernel (``loss_and_grad`` on the card) against the graphed
+        plain path (autograd through ``mean_loss``) on the same lanes, at 25
+        and 500 lanes, each lane's loss and each gradient element (relative
+        to the lane's gradient norm) within ``LANE_PLAIN_TOL``, and against
+        the JAX package's float64 result on 25 lanes
+        (``tests/data/lv_lanes_jax.npz``) within ``LANE_JAX_TOL``; CUDA-event
+        milliseconds of one launch and of one plain replay at 500 lanes; in
+        5 profiled ADAM steps the program counter ``lane_loss.kernel``
+        equals the graph's replays.
 13. The climate case study (``examples/climate_*.py``, ``models/climate_*``,
     the stabilized solvers), on the card against the CPU port; this path
     runs no hand-written kernel (both counters must read 0 after it):
@@ -266,7 +277,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     and the phase says that it rendered no figure; kernel A launches > 0.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel with
-its bound on the card (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s float32); the
+its bound on the card (the lane kernel's: its chain's latency, phase 12 (e);
+its ``replays``: those of 12 (e)'s profiled steps) (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s float32); the
 last line is ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
 import json
@@ -353,7 +365,8 @@ def _demangle(names):
                              text=True, timeout=30, check=True).stdout.splitlines()
     except (OSError, subprocess.SubprocessError):
         return {n: n for n in names}
-    return {n: d.split("(")[0].replace("void ", "") for n, d in zip(names, out)}
+    return {n: d.replace("(anonymous namespace)::", "").split("(")[0].replace("void ", "")
+            for n, d in zip(names, out)}
 
 
 def phase_build():
@@ -1419,7 +1432,10 @@ STUDY_STAGES = ("recover_stage", "oracle_stage", "weak_stage")
 def _study_train(s, data, theta0, sync):
     """Phase 12 (a)'s training stages on the stages ``s`` from ``theta0`` on
     ``data``: the lanes' losses after ADAM, BFGS and LM, and the seconds per
-    ADAM step, BFGS iteration and LM iteration."""
+    ADAM step, BFGS iteration and LM iteration.  Each stage's parameters are
+    scored by one function, ``mean_loss`` (on the card BFGS's own values come
+    from the lane kernel, whose float32 rounding differs from the plain
+    path's: a lane LM leaves where it is would read as risen)."""
 
     def timed(fn):
         sync()
@@ -1430,8 +1446,10 @@ def _study_train(s, data, theta0, sync):
 
     (theta, _), t_adam = timed(lambda: s.adam_stage(theta0, data, steps=10))
     l_adam = s.mean_loss(theta, data).detach()
-    (theta, l_bfgs, _), t_bfgs = timed(lambda: s.bfgs_round(theta, data, maxiters=10))
-    (theta, l_lm), t_lm = timed(lambda: s.lm_round(theta, data, maxiters=3))
+    (theta, _, _), t_bfgs = timed(lambda: s.bfgs_round(theta, data, maxiters=10))
+    l_bfgs = s.mean_loss(theta, data).detach()
+    (theta, _), t_lm = timed(lambda: s.lm_round(theta, data, maxiters=3))
+    l_lm = s.mean_loss(theta, data).detach()
     return [x.cpu() for x in (l_adam, l_bfgs, l_lm)], (t_adam / 10, t_bfgs / 10, t_lm / 3)
 
 
@@ -1489,6 +1507,93 @@ def _study_supports(device, name, lanes, theta_tr, loss_tr):
     return c1, c2, time.perf_counter() - t0
 
 
+# the lane kernel's latency bound: one lane's chain of dependent operations
+# at an FMA's 4 cycles and 1.98 GHz, ~44 per net evaluation (three layers of
+# dot product, bias, square and expf, the output layer, the stage sum) and ~28
+# per stage VJP; 721 evaluations forward, 720 recomputed and 720 VJPs back
+LANE_EVAL_OPS, LANE_VJP_OPS, OP_CYCLES, SM_HZ = 44, 28, 4, 1.98e9
+# per lane and element (``_lane_gaps``): the kernel against the graphed plain
+# path, both float32, reads 9.7e-6 (loss) and 1.64e-5 (gradient) at 500 lanes
+LANE_PLAIN_TOL = (2.5e-5, 5e-5)
+# against JAX's float64 result (tests/data/lv_lanes_jax.npz): 3.0e-6 and 1.34e-6
+LANE_JAX_TOL = (1e-5, 5e-6)
+
+
+def _lane_gaps(prog, ref):
+    """``(loss, grad)`` against ``ref``: the worst lane's loss gap relative
+    to its loss, the worst gradient element's gap relative to its lane's
+    gradient norm, and the largest absolute gap of either."""
+    (lp, gp), (lr, gr) = ((x.double().cpu() for x in pair) for pair in (prog, ref))
+    return (float(((lp - lr).abs() / lr.abs()).max()),
+            float(((gp - gr).abs().amax(1) / gr.norm(dim=1)).max()),
+            max(float((lp - lr).abs().max()), float((gp - gr).abs().max())))
+
+
+def _study_lane_kernel(s):
+    """Phase 12 (e): the lane kernel (``s.loss_and_grad`` on the card) against
+    the graphed plain path (autograd through ``s.mean_loss``, as the card ran
+    it before the kernel) and against JAX; CUDA-event times at 500 lanes;
+    the kernel's graph replays counted by ``lane_loss.kernel`` in 5 profiled
+    ADAM steps.  Returns the kernels line's entry."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from universal_differential_equations_torch.examples import run_loops as rl
+    from universal_differential_equations_torch.ops import lv_lanes
+    from universal_differential_equations_torch.utils import profiling
+
+    def plain(th, d):
+        with torch.enable_grad():
+            x = th.detach().requires_grad_(True)
+            loss = s.mean_loss(x, d)
+            (g,) = torch.autograd.grad(loss.sum(), x)
+        return loss.detach(), g
+
+    gaps = {}
+    for n in (25, 500):
+        data, theta, _ = s.lane_inputs(np.linspace(0, 499, n).astype(int), 100)
+        g_plain = rl._Graphed(plain, theta, data)
+        gaps[n] = _lane_gaps(s.loss_and_grad(theta, data), g_plain(theta, data))
+        if n == 500:
+            ms = _median_ms(lambda: s.loss_and_grad(theta, data))
+            plain_ms = _median_ms(lambda: g_plain(theta, data), calls=3, reps=3)
+        del g_plain
+    with np.load(ROOT / "tests" / "data" / "lv_lanes_jax.npz") as z:
+        lanes, ref = z["lanes"], (torch.from_numpy(z["loss"]), torch.from_numpy(z["grad"]))
+    data, theta, _ = s.lane_inputs(lanes, 100)
+    gaps["jax"] = _lane_gaps(s.loss_and_grad(theta, data), ref)
+    s.adam_stage(theta, data, steps=1)  # captures the stage's graph
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        s.adam_stage(theta, data, steps=5)
+        _sync()
+    rec = profiling.recorded()
+    profiling.clear()
+    replays = sum(name == "graph.replay" for name, *_ in rec["spans"])
+    counted = sum(n for name, _, n in rec["counts"] if name == "lane_loss.kernel")
+    n_steps = 30 * rl.SUB
+    bound_ms = ((2 * n_steps * 6 + 1) * LANE_EVAL_OPS + n_steps * 6 * LANE_VJP_OPS) \
+        * OP_CYCLES / SM_HZ * 1e3
+    flop_ms = 2 * 3 * sum(i * o for i, o in _layer_pairs(lv_lanes.WIDTHS)) \
+        * (6 * n_steps + 1) * 500 / F32_FLOP_PER_S * 1e3
+    ok = (all(g[0] <= LANE_PLAIN_TOL[0] and g[1] <= LANE_PLAIN_TOL[1] for g in
+              (gaps[25], gaps[500]))
+          and gaps["jax"][0] <= LANE_JAX_TOL[0] and gaps["jax"][1] <= LANE_JAX_TOL[1]
+          and replays == counted == 5)
+    _check(ok, f"[study e] lane kernel against the graphed plain path, worst lane's loss / "
+               f"gradient element (over its lane's norm): 25 lanes {gaps[25][0]:.3e} / "
+               f"{gaps[25][1]:.3e}, 500 lanes {gaps[500][0]:.3e} / {gaps[500][1]:.3e} "
+               f"({LANE_PLAIN_TOL}); against JAX float64 on {len(lanes)} lanes "
+               f"{gaps['jax'][0]:.3e} / {gaps['jax'][1]:.3e} ({LANE_JAX_TOL}); 500 lanes "
+               f"{ms:.4f} ms a launch, the plain graph {plain_ms:.2f} ms a replay, bound "
+               f"{bound_ms:.4f} ms (latency; FLOP {flop_ms:.5f} ms); 5 ADAM steps: "
+               f"{replays} replays, lane_loss.kernel {counted}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(bound_ms, flop_ms),
+            "bound_by": "latency" if bound_ms >= flop_ms else "operations",
+            "max_abs_err": gaps[500][2], "max_rel_err": max(gaps[500][:2]),
+            "replays": counted}
+
+
 def phase_lv_study(device, card):
     """Phase 12: the 500-lane noise study's stages (see the module docstring)."""
     import multiprocessing
@@ -1497,9 +1602,10 @@ def phase_lv_study(device, card):
     import numpy as np
     import torch
     from universal_differential_equations_torch.examples import run_loops as rl
-    from universal_differential_equations_torch.ops import stencil
+    from universal_differential_equations_torch.ops import lv_lanes, stencil
 
     stencil.launches = stencil.tangent_launches = stencil.generic_launches = 0
+    lv_lanes.launches = 0
     t_phase = time.perf_counter()
     results = ROOT / "examples" / "lotka_volterra" / "results"
     with np.load(results / "lane_theta_samples.npz") as z:
@@ -1545,7 +1651,9 @@ def phase_lv_study(device, card):
         log(f"[study a] 500 lanes on the card, graphs captured: {t_adam:.3f} s per ADAM step, "
             f"{t_lm:.3f} s for one LM iteration (25 lanes: {walls['cuda'][0]:.3f}, "
             f"{walls['cuda'][2]:.3f})")
-        del data, theta0, s
+        del data, theta0
+        lane_kernel = _study_lane_kernel(s)
+        del s
 
         # (b) the recovery stage from the archived trained weights, (c) the oracle
         # and weak arms: the card's selections against the CPU's and the archive,
@@ -1561,11 +1669,13 @@ def phase_lv_study(device, card):
     la, lb, ll = losses["cuda"]
     finite = all(bool(torch.isfinite(x).all()) for x in (la, lb, ll))
     ok = finite and bool((lb <= la).all()) and bool((ll <= lb).all())
+    rise = max(float(((lb - la) / la).max()), float(((ll - lb) / lb).max()))
     r_adam = _rel(la, losses["cpu"][0])
     _check(ok and r_adam <= 1e-4,
            f"[study a] 25 lanes: losses finite {finite}, not rising ADAM -> BFGS -> LM "
            f"{ok} (median {float(la.median()):.4g} -> {float(lb.median()):.4g} -> "
-           f"{float(ll.median()):.4g}); card vs CPU after ADAM rel {r_adam:.3e} (1e-4); "
+           f"{float(ll.median()):.4g}; the largest relative rise of a lane {rise:.3e}); "
+           f"card vs CPU after ADAM rel {r_adam:.3e} (1e-4); "
            f"seconds per ADAM step / BFGS iteration / LM iteration: card "
            f"{walls['cuda'][0]:.3f} / {walls['cuda'][1]:.3f} / {walls['cuda'][2]:.3f}, CPU "
            f"{walls['cpu'][0]:.3f} / {walls['cpu'][1]:.3f} / {walls['cpu'][2]:.3f} on {card}")
@@ -1597,10 +1707,15 @@ def phase_lv_study(device, card):
 
     launched = (stencil.launches, stencil.tangent_launches, stencil.generic_launches)
     log(f"[study] fused RHS kernel launches during phase 12: A {launched[0]}, B {launched[1]}, "
-        f"runtime-width {launched[2]} (this path runs no hand-written kernel); phase wall "
+        f"runtime-width {launched[2]} (its paths reach none); lane kernel launches "
+        f"{lv_lanes.launches} (ADAM's and BFGS's graphs hold it); phase wall "
         f"{time.perf_counter() - t_phase:.1f} s")
     if any(launched):
         raise AssertionError("phase 12 launched a fused RHS kernel; its paths reach none")
+    if not lv_lanes.launches:
+        raise AssertionError("phase 12's training stages did not go through the lane kernel")
+    lane_kernel["launches"] = lv_lanes.launches
+    return lane_kernel
 
 
 def phase_climate(device, card):
@@ -2611,7 +2726,7 @@ def main():
     phase_fkpp(device, card, ts, ys)
     phase_ensemble(device, card)
     phase_surface(device, card)
-    phase_lv_study(device, card)
+    lane_kernel = phase_lv_study(device, card)
     phase_climate(device, card)
     phase_stiff_dae(device, card)
     phase_sde_bsde(device, card)
@@ -2647,6 +2762,13 @@ def main():
         "bound_ms": bb_ms,
         "bound_by": bb_by,
         "library_ms": None,
+    }, {
+        "name": "lv_lanes_kernel",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/lv_lanes.cu",
+        "replaces": None,
+        "library_ms": None,
+        **lane_kernel,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -361,3 +361,124 @@ def test_program_spans_match_the_profiler_on_the_card(cuda_device):
         assert len(mine) == len(theirs), name
         for (s, e), (ps, pe) in zip(mine, theirs):
             assert abs(s - ps) <= 50_000 and abs(e - pe) <= 50_000, (name, s - ps, e - pe)
+
+
+# ---------------------------------------------------------------------------
+# the LV study's lane kernel (ops/lv_lanes.py)
+# ---------------------------------------------------------------------------
+LANE_LOSS_GAP, LANE_GRAD_GAP = 1e-5, 8e-6  # perfbench/checks/lv_study.adam.json
+# each lane on its own (``_per_lane_gaps``): the kernel against the graphed
+# plain path, both float32, reads 9.7e-6 and 1.64e-5 at 500 lanes (H100)
+PLAIN_LOSS_TOL, PLAIN_GRAD_TOL = 2.5e-5, 5e-5
+# the kernel against JAX's float64 result (tests/data/lv_lanes_jax.npz, written
+# and checked by tests/test_torch_lv_lanes.py) reads 3.0e-6 and 1.34e-6 (H100)
+JAX_LOSS_TOL, JAX_GRAD_TOL = 1e-5, 5e-6
+
+
+@pytest.fixture(scope="module")
+def card_study():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from universal_differential_equations_torch.examples import run_loops as rl
+
+    return rl.build_stages(device="cuda")
+
+
+def _lane_gaps(prog, ref):
+    """The benchmark's ``loss_gap`` (losses summed over lanes) and
+    ``grad_gap`` (per leaf of every lane, ``|‖p‖ − ‖r‖|`` over the larger of
+    ``‖r‖`` and the median leaf's; the worst leaf) of ``(loss, grad)``s."""
+    import statistics
+
+    from universal_differential_equations_torch.ops import lv_lanes
+
+    (lp, gp), (lr, gr) = prog, ref
+    loss_gap = abs(float(lp.double().sum() - lr.double().sum())) / abs(float(lr.double().sum()))
+    n_p, n_r = ([float(t.norm()) for w, b in lv_lanes._layers(g) for t in (b, w)]
+                for g in (gp, gr))
+    med = statistics.median(n_r)
+    return loss_gap, max(abs(p - r) / max(r, med) for p, r in zip(n_p, n_r))
+
+
+def _per_lane_gaps(prog, ref):
+    """The worst lane's loss gap relative to its loss, and the worst gradient
+    element's gap relative to its lane's gradient norm: a lane's result in
+    another lane's slot, or a transposed leaf, shows here."""
+    (lp, gp), (lr, gr) = ((torch.as_tensor(x).double().cpu() for x in pair)
+                          for pair in (prog, ref))
+    return (float(((lp - lr).abs() / lr.abs()).max()),
+            float(((gp - gr).abs().amax(1) / gr.norm(dim=1)).max()))
+
+
+@pytest.mark.parametrize("lanes", [25, 500])
+def test_lane_kernel_matches_the_graphed_plain_path(card_study, lanes):
+    from universal_differential_equations_torch.examples import run_loops as rl
+
+    data, theta, _ = card_study.lane_inputs(np.linspace(0, 499, lanes).astype(int), 100)
+
+    def plain(th, d):
+        with torch.enable_grad():
+            x = th.detach().requires_grad_(True)
+            loss = card_study.mean_loss(x, d)
+            (g,) = torch.autograd.grad(loss.sum(), x)
+        return loss.detach(), g
+
+    ref = rl._Graphed(plain, theta, data)(theta, data)
+    graphed = rl._Graphed(card_study.loss_and_grad, theta, data)
+    prog = graphed(theta, data)
+    assert graphed.ops <= 10 and graphed.lane_kernels == 1
+    assert all(torch.isfinite(x).all() for x in prog)
+    loss_gap, grad_gap = _lane_gaps(prog, ref)
+    assert loss_gap <= LANE_LOSS_GAP and grad_gap <= LANE_GRAD_GAP, (loss_gap, grad_gap)
+    loss_gap, grad_gap = _per_lane_gaps(prog, ref)
+    assert loss_gap <= PLAIN_LOSS_TOL and grad_gap <= PLAIN_GRAD_TOL, (loss_gap, grad_gap)
+
+
+def test_lane_kernel_matches_jax(card_study):
+    """The kernel on 25 study lanes against the JAX package's float64
+    ``jax.vmap(jax.value_and_grad)`` of the same lane loss, lane by lane."""
+    from pathlib import Path
+
+    with np.load(Path(__file__).resolve().parent / "data" / "lv_lanes_jax.npz") as z:
+        lanes, ref = z["lanes"], (torch.from_numpy(z["loss"]), torch.from_numpy(z["grad"]))
+    data, theta, _ = card_study.lane_inputs(lanes, 100)
+    prog = card_study.loss_and_grad(theta, data)
+    loss_gap, grad_gap = _per_lane_gaps(prog, ref)
+    assert loss_gap <= JAX_LOSS_TOL and grad_gap <= JAX_GRAD_TOL, (loss_gap, grad_gap)
+    loss_gap, grad_gap = _lane_gaps(tuple(x.cpu() for x in prog), ref)
+    assert loss_gap <= LANE_LOSS_GAP and grad_gap <= LANE_GRAD_GAP, (loss_gap, grad_gap)
+
+
+def test_lane_kernel_counts_launches_and_replays(card_study):
+    from torch.profiler import ProfilerActivity, profile
+
+    from universal_differential_equations_torch.ops import lv_lanes
+    from universal_differential_equations_torch.utils import profiling
+
+    data, theta, _ = card_study.lane_inputs(np.arange(25), 100)
+    before = lv_lanes.launches
+    for _ in range(3):
+        card_study.loss_and_grad(theta, data)
+    assert lv_lanes.launches == before + 3
+    card_study.adam_stage(theta, data, steps=1)  # captures the stage's graph
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        card_study.adam_stage(theta, data, steps=4)
+        torch.cuda.synchronize()
+    rec = profiling.recorded()
+    profiling.clear()
+    replays = sum(name == "graph.replay" for name, *_ in rec["spans"])
+    kernels = sum(n for name, _, n in rec["counts"] if name == "lane_loss.kernel")
+    assert replays == kernels == 4
+    with pytest.raises(TypeError):
+        card_study.loss_and_grad(theta.double(), data.double())
+    with pytest.raises(ValueError):
+        card_study.loss_and_grad(theta, data.cpu())
+
+
+def test_lane_kernel_gives_a_lane_the_same_result_at_any_lane_count(card_study):
+    data, theta, _ = card_study.lane_inputs(np.arange(500), 100)
+    pick = torch.arange(0, 500, 20, device=data.device)
+    loss, grad = card_study.loss_and_grad(theta, data)
+    loss_25, grad_25 = card_study.loss_and_grad(theta[pick].contiguous(), data[pick].contiguous())
+    assert torch.equal(loss_25, loss[pick]) and torch.equal(grad_25, grad[pick])

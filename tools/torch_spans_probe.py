@@ -23,8 +23,10 @@ result line printed as the harness prints it), then, from the same traced
 window: each program span's record against the profiler's event of the same
 name (record less event at each end, by time in the window), the idle time
 by the host's innermost program span (``waits`` spans and time outside every
-span named apart), and for each CUDA graph launch its call's host time and
-the idle in and after it.
+span named apart), for each CUDA graph launch its call's host time and the
+idle in and after it, and the program's counters summed over the window
+beside its ``graph.replay`` spans (``lane_loss.kernel`` equals them where
+every evaluation went through the lane kernel).
 
 Each prints one JSON object and writes it to ``--out``.
 """
@@ -127,8 +129,12 @@ def traced(workload, seed):
                    "--trace", "1"])
     tr, prof = kept["trace"], kept["prof"]
     lo, hi = tr.window
-    spans = [s for s in profiling.recorded()["spans"]
-             if s[2] is not None and s[1] >= lo and s[2] <= hi]
+    rec = profiling.recorded()
+    spans = [s for s in rec["spans"] if s[2] is not None and s[1] >= lo and s[2] <= hi]
+    counts = {}
+    for name, t, n in rec["counts"]:
+        if lo <= t <= hi:
+            counts[name] = counts.get(name, 0) + n
     events = {}
     for e in prof.profiler.kineto_results.events():
         if e.is_user_annotation() and e.device_type() == torch.autograd.DeviceType.CPU:
@@ -144,7 +150,8 @@ def traced(workload, seed):
         agree[name] = {"spans": len(mine), "events": len(theirs), "worst_gap_us": worst,
                        "over_50us": sum(max(abs(g[1]), abs(g[2])) > 50 for g in gaps),
                        "gaps": gaps}
-    return {"rc": rc, "window_s": tr.window_s, "busy_s": tr.busy_s(), "agree": agree,
+    return {"rc": rc, "window_s": tr.window_s, "busy_s": tr.busy_s(), "counts": counts,
+            "graph_replays": sum(s[0] == "graph.replay" for s in spans), "agree": agree,
             "idle_s_by_innermost_span": _idle_by_span(tr, spans),
             "graph_launches": _graph_launches(tr)}
 

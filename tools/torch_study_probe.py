@@ -6,7 +6,8 @@
 For each lane count, on the study's own lanes (``examples/run_loops.py``,
 inputs from the JAX draw, float32), times one training evaluation (the mean
 squared residual of every lane's 120-step fixed Tsit5 solve and its gradient,
-as ADAM and BFGS use it) and one LM Jacobian (``lane_jacobian``, 87
+as ADAM and BFGS use it: on the card one launch of the lane kernel,
+``ops/lv_lanes.py``) and one LM Jacobian (``lane_jacobian``, 87
 tangents), each run eagerly and replayed as a captured CUDA graph: CUDA-event
 medians, the operators one evaluation dispatches, the graph's capture
 seconds, and the largest difference between the graph's outputs and the

@@ -19,8 +19,11 @@ Lanes are a leading tensor dimension: training runs ``torch.func.vmap`` of
 the fixed-step Tsit5 residual (``integrate_fixed``, 120 steps per lane) under
 ADAM, ``bfgs_minimize_lanes`` and
 ``levenberg_marquardt_lanes``; each selection stage is one ``torch.func.vmap``
-over the lanes of a chunk.  The default chunk is all 500 lanes: a lane costs
-the host almost nothing, so one chunk of 500 costs about what one of 25 does.
+over the lanes of a chunk.  On the card ADAM's and BFGS's loss and gradient
+(``loss_and_grad``) is one launch of the hand-written lane kernel
+(``ops/lv_lanes.py``: the same solve and its discrete adjoint) for every
+lane.  The default chunk is all 500 lanes: a lane costs the host almost
+nothing, so one chunk of 500 costs about what one of 25 does.
 
 Lane inputs (``--lanes``):
 
@@ -74,6 +77,7 @@ from universal_differential_equations_torch.core.integrate import integrate_fixe
 from universal_differential_equations_torch.flatten_util import ravel_pytree
 from universal_differential_equations_torch.io import KeyedArchive
 from universal_differential_equations_torch.models import lotka_volterra as lv
+from universal_differential_equations_torch.ops import lv_lanes
 from universal_differential_equations_torch.parallel import (
     ensemble_mesh,
     initialize_distributed,
@@ -88,7 +92,7 @@ from universal_differential_equations_torch.train import (
     levenberg_marquardt_lanes,
 )
 from universal_differential_equations_torch.utils import card_name, require_viz
-from universal_differential_equations_torch.utils.profiling import span
+from universal_differential_equations_torch.utils.profiling import count, span
 
 F32 = torch.float32
 NOISE_LEVELS = (1e-3, 5e-3, 1e-2, 2.5e-2, 5e-2)  # run_loops.jl:40-46
@@ -148,7 +152,9 @@ class _Graphed:
     captured.  A training evaluation of the study is ~70k small operations,
     each a launch from the host when run eagerly; the graph launches them
     as one.  While a profiler records, each call is a ``graph.replay`` span
-    (copies in, replay, clones out)."""
+    (copies in, replay, clones out), and a graph that holds the lane kernel
+    (``ops/lv_lanes.py``; ``lane_kernels`` of its launches) adds them to the
+    counter ``lane_loss.kernel`` at each replay."""
 
     def __init__(self, fn, *inputs):
         self.inputs = [x.detach().clone() for x in inputs]
@@ -158,10 +164,11 @@ class _Graphed:
             fn(*self.inputs)
         torch.cuda.current_stream().wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        count = OpCounter()
-        with count, torch.cuda.graph(self.graph):
+        ops, launched = OpCounter(), lv_lanes.launches
+        with ops, torch.cuda.graph(self.graph):
             self.outputs = fn(*self.inputs)
-        self.ops, self.replays = count.captured, 0
+        self.ops, self.replays = ops.captured, 0
+        self.lane_kernels = lv_lanes.launches - launched
 
     def __call__(self, *inputs):
         with span("graph.replay"):
@@ -169,6 +176,8 @@ class _Graphed:
                 buf.copy_(x)
             self.graph.replay()
             self.replays += 1
+            if self.lane_kernels:
+                count("lane_loss.kernel", self.lane_kernels)
             return tuple(o.clone() for o in self.outputs)
 
 
@@ -316,6 +325,11 @@ def build_stages(weak_widths=(9, 13, 17, 21, 25, 29), bfgs_rounds=None, lm_round
             loss = mean_loss(th, data)
             (g,) = torch.autograd.grad(loss.sum(), th)
         return loss.detach(), g
+
+    if device.type == "cuda":
+        # on the card each evaluation is one launch of the lane kernel: the
+        # same solve and the discrete adjoint of it (ops/lv_lanes.py)
+        loss_and_grad = lv_lanes.LaneLossGrad(net, lv.P_TRUE[0], lv.P_TRUE[3], 0.0, t_end, SUB)
 
     def adam_stage(theta0, data, steps=ADAM_STEPS, lr=0.1, b1=0.9, b2=0.999, eps=1e-8):
         """``steps`` ADAM(0.1) steps on every lane, in ``optax.adam``'s

@@ -22,7 +22,7 @@ from pathlib import Path
 __all__ = ["build", "load"]
 
 _PKG = Path(__file__).resolve().parents[1]
-_SOURCES = [_PKG / "csrc" / "updet_rhs.cu"]
+_SOURCES = [_PKG / "csrc" / "updet_rhs.cu", _PKG / "csrc" / "lv_lanes.cu"]
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 LIB_PATH = BUILD_DIR / "libude_kernels.so"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -85,9 +85,10 @@ def build(force: bool = False) -> dict:
 def _bind(lib):
     """Set the C signatures of a loaded library and read what it reports:
     ``lib.limits`` (threads per block of the runtime-width kernel, max layers,
-    max width, max staged floats) and ``lib.nets`` (the width tuples compiled
-    as specialised kernels, in the library's order)."""
-    p, i = ctypes.c_void_p, ctypes.c_int
+    max width, max staged floats), ``lib.nets`` (the width tuples compiled
+    as specialised kernels, in the library's order) and
+    ``lib.lv_max_steps`` (the most steps a lane-kernel launch takes)."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     pi = ctypes.POINTER(i)
     lib.ude_updet_rhs.argtypes = [i, p, p, p, pi, i, i, i, p]
     lib.ude_updet_rhs.restype = i
@@ -101,6 +102,10 @@ def _bind(lib):
     lib.ude_limits.restype = None
     lib.ude_nets.argtypes = [pi, i]
     lib.ude_nets.restype = i
+    lib.ude_lv_lanes.argtypes = [p, p, p, p, i, i, i, f, f, p, p]
+    lib.ude_lv_lanes.restype = i
+    lib.ude_lv_lanes_max_steps.argtypes = []
+    lib.ude_lv_lanes_max_steps.restype = i
     limits = (i * 4)()
     lib.ude_limits(limits)
     lib.limits = tuple(limits)
@@ -113,6 +118,7 @@ def _bind(lib):
         nets.append(tuple(buf[k + 1:k + 2 + n_layers]))
         k += 2 + n_layers
     lib.nets = tuple(nets)
+    lib.lv_max_steps = lib.ude_lv_lanes_max_steps()
     return lib
 
 
